@@ -4,26 +4,42 @@
     python3 chip_smoke.py
 
 Phases, each fatal on failure:
-  1. build     -- compile every hand-written kernel from `ops/csrc/` (nvcc).
-  2. device    -- print the card's name and power limit (nvidia-smi).
-  3. kernels   -- each kernel against its plain PyTorch version at the shapes
-                  of the 5-tuple eval path, with times, bounds and the library
-                  yardstick; one JSON line per kernel.
-  4. reference -- the pose pipeline on the card recovers the known poses of a
-                  small exact synthetic 5-tuple.
-  5. main path -- `cli.eval_multi_view.evaluate` at full width (V=5, K=1024,
-                  480x640, 7 x (self + 3 x cross), 100 Sinkhorn iterations,
-                  conf MLP, w8pt_ba, eval_batch 8) on seeded random weights and
-                  images, once on the kernels ("auto") and once on the plain
-                  versions; tuples/s, matches0 agreement, finite extrinsics, and
-                  the kernels' launch counts in the kernel run; fails on any
-                  host sync inside one `infer_subchunk`.
-  6. breakdown -- stage times of one 8-tuple sub-chunk, the unrolled-Jacobi
-                  share of the pose stage, and the device's busy time under
-                  torch.profiler.
-The line before the last is {"kernels": [...]}; the last line is
-{"ok": true, "device": {...}}. Without a CUDA device, or outside the
-repository, it exits non-zero and prints no result.
+  1. build      -- compile every hand-written kernel from `ops/csrc/` (nvcc,
+                   one process per source, started together).
+  2. device     -- print the card's name and power limit (nvidia-smi).
+  3. kernel     -- each of the six kernels against its plain PyTorch version
+                   at the shapes of its main path (eval: V=5, K=1024; training:
+                   80 pair matrices of 401 x 401, 100 iterations; the kernels
+                   both paths launch at both), with times,
+                   bounds and the library yardstick; one JSON line per kernel.
+                   The reverse sweep is also held against autograd through the
+                   plain log-domain iteration, at score scale 400 for
+                   finiteness, and against itself for equal bits.
+  4. reference  -- the pose pipeline on the card recovers the known poses of a
+                   small exact synthetic 5-tuple.
+  5. main_path  -- `cli.eval_multi_view.evaluate` at full width (V=5, K=1024,
+                   480x640, 7 x (self + 3 x cross), 100 Sinkhorn iterations,
+                   conf MLP, w8pt_ba, eval_batch 8; 8 tuples) on seeded random
+                   weights and images, once on the kernels ("auto") and once
+                   on the plain versions; tuples/s, matches0 agreement, finite
+                   extrinsics, the kernels' launch counts in the kernel run;
+                   fails on any host sync inside one `infer_subchunk`. Then
+                   the stage times of one 8-tuple sub-chunk, the
+                   unrolled-Jacobi share of the pose stage, and the device's
+                   busy time under torch.profiler.
+  6. train_path -- `cli.train.train` at the full ScanNet 5-tuple training
+                   width (V=5, K=400, B=8, 480x480, 7 x (self + 3 x cross), 100
+                   iterations, stage 1, f32) on seeded plane scenes with exact
+                   depth: 6 steps on a repeated batch plus validation, on the
+                   kernels and on the plain versions from the same initial
+                   state. Finite and falling loss, first-step gradients of
+                   the two runs agree, launch counts per step, no host sync
+                   inside a step, a checkpoint reads back; steps/s, tuples/s
+                   and a per-stage breakdown of one step.
+The third line from the end is {"kernels": [...]}, then the card's name and
+power limit, and the last line is {"ok": true, "device": {...}}. Without a
+CUDA device, or outside the repository, it exits non-zero and prints no
+result. `--phases a,b` runs a subset while debugging (no result line).
 """
 
 import json
@@ -42,6 +58,29 @@ PEAK_BYTES = 3.35e12  # H100 SXM HBM3 (data sheet)
 ATTN_TOL = 2e-3  # online-softmax reordering drift bound (JAX test_chunked_softmax_drift_bounded)
 SINKHORN_TOL = 2e-4  # transport probabilities (JAX test_pallas_scaling_kernel_matches_xla)
 SINKHORN_EXTREME_TOL = 5e-4  # probabilities at extreme scores (same JAX test)
+SINKHORN_DUAL_TOL = 1e-4  # stashed duals u_t, v_t (f32 reduction order over 100 iterations)
+SINKHORN_GRAD_TOL = 2e-4  # dscores / max(1, max|dscores|) (JAX test_pallas_backward_kernel_matches_xla_vjp)
+SINKHORN_ALPHA_TOL = 2e-3  # dalpha, relative above 1 (same JAX test)
+# First-step gradients of the kernel run against the plain run, per leaf, as a
+# share of the largest leaf norm. At the random (flax-style) initial weights
+# the pair scores reach |s| ~ 1e3 and the assignment is nearly hard, so the
+# gradient is ill-conditioned in float32: the plain float32 run itself is
+# ~1.5e-2 away from the same computation in float64 on its worst leaf (the
+# first layers' MLP kernels) and ~4e-5 on its median leaf. So the worst leaf
+# is held to 2.5e-2 (twice the largest reading of a sound run, 1.2e-2) and the
+# median leaf to 1e-3; `_grad_reference` holds the kernel run against float64
+# directly, and holds every leaf to 2e-4 (six times the reading of a sound
+# run) at a conditioned point: the same weights with the attention logits
+# scaled down 16-fold, where the softmaxes of the 28 layers no longer
+# saturate, and the pair scores 1024-fold.
+TRAIN_GRAD_WORST_TOL = 2.5e-2
+TRAIN_GRAD_MEDIAN_TOL = 1e-3
+TRAIN_GRAD_F64_FACTOR = 3.0  # kernels' distance to float64 <= 3 x plain float32's + 1e-3
+TRAIN_GRAD_CONDITIONED_TOL = 2e-4  # every leaf, kernels vs plain, at the conditioned point
+CONDITIONED_RESCALE = {"q_proj": 1 / 4, "k_proj": 1 / 4, "final_proj": 1 / 32}
+# Held against its plain version in the kernel phase only: no entry point of
+# the reference package asks for the exact log-domain iteration without grad.
+OFF_PATH_KERNELS = ("sinkhorn_log",)
 
 
 class SmokeFailure(RuntimeError):
@@ -109,21 +148,26 @@ def _attention_records(g):
     from e2e_multi_view_matching_tpu_torch.ops import attention_cuda as ac
 
     dev = torch.device("cuda")
-    h, dh, V, K = 4, 64, 5, 1024
+    h, dh, V = 4, 64, 5
     D = h * dh
     records = []
 
     def rand(*shape):
         return torch.randn(*shape, generator=g, device=dev)
 
-    # self layers: (B*V, K, D) tokens, mode "full" -> attn_fwd at (160, 1024, 64)
-    # cross layers: (B, V*K, D) tokens -> cross_attn_fwd at (32, 5120, 64)
-    for name, Bt, S, n_views, mode, replaces in (
-        ("attn_fwd", 8 * V, K, 1, "full",
-         "e2e_multi_view_matching_tpu/ops/attention_pallas.py:51"),
-        ("cross_attn_fwd", 8, V * K, V, "cross",
-         "e2e_multi_view_matching_tpu/ops/attention_pallas.py:74"),
+    # eval path (K = 1024): self layers are (B*V, K, D) tokens in mode "full" ->
+    # attn_fwd at (160, 1024, 64); cross layers (B, V*K, D) -> cross_attn_fwd at
+    # (32, 5120, 64). Training path (K = 400, no multiple of the cross kernel's
+    # 64-row tile): attn_fwd carries both, self at (160, 400, 64) and cross,
+    # masked, at (32, 2000, 64); those go into attn_fwd's record as `train_shapes`.
+    jax_file = "e2e_multi_view_matching_tpu/ops/attention_pallas.py"
+    for name, Bt, n_views, K, mode, replaces in (
+        ("attn_fwd", 8 * V, 1, 1024, "full", f"{jax_file}:51"),
+        ("cross_attn_fwd", 8, V, 1024, "cross", f"{jax_file}:74"),
+        ("attn_fwd", 8 * V, 1, 400, "full", None),
+        ("attn_fwd", 8, V, 400, "cross", None),
     ):
+        S = n_views * K
         q, k, v = rand(Bt, S, D), rand(Bt, S, D), rand(Bt, S, D)
         out = ac.fused_view_attention(q, k, v, h, n_views, K, mode)
         ref = ac.plain_view_attention(q, k, v, h, n_views, K, mode)
@@ -136,14 +180,12 @@ def _attention_records(g):
         qs, ks, vs = split(q), split(k), split(v)
         q3, k3, v3 = (x.reshape(Bt * h, S, dh) for x in (qs, ks, vs))
         scale = 1.0 / math.sqrt(dh)
+        mask = ac.cross_view_mask(V, K, device=dev) if mode == "cross" else None
+        keys = (V - 1) * K if mode == "cross" else S  # keys a query has to see
         if name == "attn_fwd":
             run = lambda: ac.attn_fwd(q3, k3, v3, K, mode, scale)  # noqa: E731
-            keys = S
-            mask = None
         else:
             run = lambda: ac.cross_attn_fwd(q3, k3, v3, V, K, scale)  # noqa: E731
-            keys = (V - 1) * K
-            mask = ac.cross_view_mask(V, K, device=dev)
         ms = cuda_ms(run, 5)
         plain_ms = cuda_ms(lambda: ac.plain_view_attention(q, k, v, h, n_views, K, mode), 3)
         lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask), 3)
@@ -151,13 +193,16 @@ def _attention_records(g):
         ops = 4.0 * BH * S * keys * dh + BH * S * keys  # FMAs x2 + one exp per score
         nbytes = 4 * BH * S * dh * 4  # q, k, v read once, o written once
         b_ms, b_by = bound(ops, nbytes)
-        check(err <= ATTN_TOL, f"{name}: max |kernel - plain| {err} > {ATTN_TOL}")
-        records.append({"name": name, "route": "cuda",
-                        "source": f"{PKG}/ops/csrc/attention_cuda.cu",
-                        "replaces": replaces, "launches": 0, "max_abs_err": err,
-                        "tol": ATTN_TOL, "ms": ms, "plain_ms": plain_ms,
-                        "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
-                        "shape": [BH, S, dh]})
+        check(err <= ATTN_TOL, f"{name} {mode} K={K}: max |kernel - plain| {err} > {ATTN_TOL}")
+        measured = {"max_abs_err": err, "tol": ATTN_TOL, "ms": ms, "plain_ms": plain_ms,
+                    "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+                    "shape": [BH, S, dh]}
+        if replaces is None:
+            records[0].setdefault("train_shapes", []).append({"mode": mode, **measured})
+        else:
+            records.append({"name": name, "route": "cuda",
+                            "source": f"{PKG}/ops/csrc/attention_cuda.cu",
+                            "replaces": replaces, "launches": 0, **measured})
 
     # the masked kernel's other modes, and its ragged edge, at a smaller shape
     for mode, n_views, n_kpts in (("self", 3, 200), ("cross", 3, 200), ("full", 1, 333)):
@@ -205,21 +250,153 @@ def _sinkhorn_record(g):
             ms = cuda_ms(lambda: sc.log_optimal_transport_cuda(scores, alpha, T), 3)
             plain_ms = cuda_ms(
                 lambda: log_optimal_transport(scores, alpha, T, impl="mxu"), 2)
-    M = N = K + 1
     n_absorb = T // sc.ABSORB_EVERY
-    # 4 flops per entry per scaling iteration (two matvecs), the exact first
-    # iteration (2 exp + 4 add/max per entry), one exp + 2 adds per entry per
-    # rebuild, 3 per entry for the output
-    ops = float(B * M * N) * (4 * (T - 1) + 6 + 3 * n_absorb + 3)
-    nbytes = 2.0 * B * M * N * 4  # couplings read once, log assignment written once
-    b_ms, b_by = bound(ops, nbytes)
+
+    def scaling_bound(K):
+        # 4 flops per entry per scaling iteration (two matvecs), the exact first
+        # iteration (2 exp + 4 add/max per entry), one exp + 2 adds per entry per
+        # rebuild, 3 per entry for the output; couplings read once, log
+        # assignment written once
+        elems = float(B * (K + 1) * (K + 1))
+        return bound(elems * (4 * (T - 1) + 6 + 3 * n_absorb + 3), 2.0 * elems * 4)
+
+    # the train path's validation batch: 80 pair matrices of 401 x 401
+    Kt = 400
+    scores = torch.randn(B, Kt, Kt, generator=g, device=dev) * 4.0
+    z = sc.log_optimal_transport_cuda(scores, alpha, T)
+    z_ref = log_optimal_transport(scores, alpha, T, impl="mxu")
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(z).all()), "sinkhorn: non-finite output at 401 x 401")
+    err_t = _prob_err(z, z_ref)
+    check(err_t <= SINKHORN_TOL, f"sinkhorn: max prob err {err_t} > {SINKHORN_TOL} at 401 x 401")
+    tb_ms, tb_by = scaling_bound(Kt)
+    train_shape = {
+        "max_abs_err": err_t, "tol": SINKHORN_TOL,
+        "ms": cuda_ms(lambda: sc.log_optimal_transport_cuda(scores, alpha, T), 3),
+        "plain_ms": cuda_ms(lambda: log_optimal_transport(scores, alpha, T, impl="mxu"), 2),
+        "bound_ms": tb_ms, "bound_by": tb_by, "library_ms": None,
+        "shape": [B, Kt + 1, Kt + 1, T]}
+
+    M = N = K + 1
+    b_ms, b_by = scaling_bound(K)
     return {"name": "sinkhorn_scaling", "route": "cuda",
             "source": f"{PKG}/ops/csrc/sinkhorn_cuda.cu",
             "replaces": "e2e_multi_view_matching_tpu/ops/sinkhorn_pallas.py:106",
             "launches": 0, "max_abs_err": errs[0], "tol": SINKHORN_TOL,
             "max_abs_err_scale400": errs[1], "tol_scale400": SINKHORN_EXTREME_TOL,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": None, "shape": [B, M, N, T]}
+            "library_ms": None, "shape": [B, M, N, T], "train_shapes": [train_shape]}
+
+
+def _sinkhorn_train_records(g):
+    """The three log-domain kernels at the training shape: 80 pair matrices
+    of 401 x 401 (B=8 tuples x 10 pairs, K=400), 100 iterations."""
+    import torch
+
+    from e2e_multi_view_matching_tpu_torch.ops import sinkhorn as ts
+    from e2e_multi_view_matching_tpu_torch.ops import sinkhorn_cuda as sc
+
+    dev = torch.device("cuda")
+    B, K, T = 80, 400, 100
+    M = N = K + 1
+    alpha = torch.ones((), device=dev)
+    scores = torch.randn(B, K, K, generator=g, device=dev) * 4.0
+    C, log_mu, log_nu, norm = ts.augment_couplings(scores, alpha)
+    w = torch.randn(B, M, N, generator=g, device=dev)
+    elems = float(B * M * N)
+    src = f"{PKG}/ops/csrc/sinkhorn_cuda.cu"
+    jax_file = "e2e_multi_view_matching_tpu/ops/sinkhorn_pallas.py"
+
+    # forward: exact log domain, without and with the stash
+    z_plain, U_plain, V_plain = ts.log_sinkhorn_stash(C, log_mu, log_nu, T)
+    z_plain = z_plain - norm
+    z_log = sc.sinkhorn_log(C, log_mu, log_nu, T, norm)
+    z_st, U, V = sc.sinkhorn_log_stash(C, log_mu, log_nu, T, norm)
+    torch.cuda.synchronize()
+    err_log, err_st = _prob_err(z_log, z_plain), _prob_err(z_st, z_plain)
+    err_uv = max(float((U - U_plain).abs().max()), float((V - V_plain).abs().max()))
+    check(err_log <= SINKHORN_TOL, f"sinkhorn_log: max prob err {err_log} > {SINKHORN_TOL}")
+    check(err_st <= SINKHORN_TOL, f"sinkhorn_log_stash: max prob err {err_st} > {SINKHORN_TOL}")
+    check(err_uv <= SINKHORN_DUAL_TOL,
+          f"sinkhorn_log_stash: max dual err {err_uv} > {SINKHORN_DUAL_TOL}")
+    check(bool(torch.equal(z_log, z_st)), "sinkhorn_log and sinkhorn_log_stash differ")
+
+    # backward: against the manual sweep (all pairs) and autograd (16 pairs)
+    G = sc.sinkhorn_bwd(C, U, V, w, log_mu, log_nu)
+    G_again = sc.sinkhorn_bwd(C, U, V, w, log_mu, log_nu)
+    G_plain = ts.log_sinkhorn_bwd(C, U_plain, V_plain, w, log_mu, log_nu)
+    torch.cuda.synchronize()
+    check(bool(torch.equal(G, G_again)), "sinkhorn_bwd: two runs give different bits")
+    ds, da = sc.dustbin_grads(G, K, K)
+    ds_p, da_p = sc.dustbin_grads(G_plain, K, K)
+    gscale = max(float(ds_p.abs().max()), 1.0)
+    err_bwd = float((ds - ds_p).abs().max()) / gscale
+    err_da = abs(float(da) - float(da_p))
+    check(err_bwd <= SINKHORN_GRAD_TOL,
+          f"sinkhorn_bwd vs manual sweep: scaled dscores err {err_bwd} > {SINKHORN_GRAD_TOL}")
+    check(err_da <= SINKHORN_ALPHA_TOL * max(1.0, abs(float(da_p))),
+          f"sinkhorn_bwd vs manual sweep: dalpha {float(da)} vs {float(da_p)}")
+    nb = 16
+    s_ag = scores[:nb].clone().requires_grad_()
+    a_ag = alpha.clone().requires_grad_()
+    z_ag = ts.log_optimal_transport(s_ag, a_ag, T, impl="xla")
+    ds_ag, da_ag = torch.autograd.grad((z_ag * w[:nb]).sum(), (s_ag, a_ag))
+    s_k = scores[:nb].clone().requires_grad_()
+    a_k = alpha.clone().requires_grad_()
+    z_k = sc.log_optimal_transport_cuda(s_k, a_k, T)
+    ds_k, da_k = torch.autograd.grad((z_k * w[:nb]).sum(), (s_k, a_k))
+    torch.cuda.synchronize()
+    err_ag = float((ds_k - ds_ag).abs().max()) / max(float(ds_ag.abs().max()), 1.0)
+    err_da_ag = abs(float(da_k) - float(da_ag))
+    check(err_ag <= SINKHORN_GRAD_TOL,
+          f"sinkhorn_bwd vs autograd: scaled dscores err {err_ag} > {SINKHORN_GRAD_TOL}")
+    check(err_da_ag <= SINKHORN_ALPHA_TOL * max(1.0, abs(float(da_ag))),
+          f"sinkhorn_bwd vs autograd: dalpha {float(da_k)} vs {float(da_ag)}")
+    del z_ag, z_k, ds_ag, ds_k
+
+    # extreme scores (random-init magnitude): everything stays finite
+    s400 = (torch.randn(nb, K, K, generator=g, device=dev) * 400.0).requires_grad_()
+    a400 = alpha.clone().requires_grad_()
+    z400 = sc.log_optimal_transport_cuda(s400, a400, T)
+    ds400, da400 = torch.autograd.grad((z400 * w[:nb]).sum(), (s400, a400))
+    check(bool(torch.isfinite(z400).all() and torch.isfinite(ds400).all()
+               and torch.isfinite(da400)), "sinkhorn log/bwd: non-finite at score scale 400")
+    check(float(z400.detach().max()) < math.log(2 * K) + 1.0,
+          "sinkhorn_log_stash: log_p above ceiling")
+
+    ms_log = cuda_ms(lambda: sc.sinkhorn_log(C, log_mu, log_nu, T, norm), 3)
+    ms_st = cuda_ms(lambda: sc.sinkhorn_log_stash(C, log_mu, log_nu, T, norm), 3)
+    ms_bwd = cuda_ms(lambda: sc.sinkhorn_bwd(C, U, V, w, log_mu, log_nu), 3)
+    plain_fwd = cuda_ms(lambda: ts.log_sinkhorn(C, log_mu, log_nu, T), 2)
+    plain_st = cuda_ms(lambda: ts.log_sinkhorn_stash(C, log_mu, log_nu, T), 2)
+    plain_bwd = cuda_ms(lambda: ts.log_sinkhorn_bwd(C, U, V, w, log_mu, log_nu), 2)
+    # per entry and iteration: each half-step adds the dual, takes the max,
+    # subtracts it, exponentiates and sums (5), twice; 3 for the output
+    fwd_ops = elems * (10 * T + 3)
+    stash_bytes = 4.0 * B * T * (M + N)
+    # per entry and reverse step: Q and P each two adds, one exp, one multiply
+    # and one sum (10), plus the two-term update of G (2)
+    bwd_ops = elems * 12 * T
+    records = []
+    for name, line, err, tol, ms, plain_ms, ops, nbytes, extra in (
+        ("sinkhorn_log", 65, err_log, SINKHORN_TOL, ms_log, plain_fwd, fwd_ops,
+         2 * 4 * elems, {}),
+        ("sinkhorn_log_stash", 202, err_st, SINKHORN_TOL, ms_st, plain_st, fwd_ops,
+         2 * 4 * elems + stash_bytes, {"max_abs_err_duals": err_uv,
+                                       "tol_duals": SINKHORN_DUAL_TOL}),
+        ("sinkhorn_bwd", 260, err_bwd, SINKHORN_GRAD_TOL, ms_bwd, plain_bwd, bwd_ops,
+         3 * 4 * elems + stash_bytes,
+         {"dalpha_abs_err": err_da, "tol_dalpha": SINKHORN_ALPHA_TOL,
+          "max_abs_err_vs_autograd": err_ag, "dalpha_abs_err_vs_autograd": err_da_ag,
+          "finite_at_scale400": True, "bitwise_repeatable": True}),
+    ):
+        b_ms, b_by = bound(ops, nbytes)
+        records.append({"name": name, "route": "cuda", "source": src,
+                        "replaces": f"{jax_file}:{line}", "launches": 0,
+                        "max_abs_err": err, "tol": tol, **extra, "ms": ms,
+                        "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                        "library_ms": None, "shape": [B, M, N, T]})
+    return records
 
 
 def kernel_phase():
@@ -227,7 +404,7 @@ def kernel_phase():
 
     g = torch.Generator(device="cuda")
     g.manual_seed(0)
-    records = _attention_records(g) + [_sinkhorn_record(g)]
+    records = _attention_records(g) + [_sinkhorn_record(g)] + _sinkhorn_train_records(g)
     for r in records:
         emit({"phase": "kernel", **r})
     return records
@@ -325,6 +502,8 @@ def _full_width_models(seed=0):
             gnn_layers=default_gnn_layers(7, 3), sinkhorn_iterations=100, conf_mlp=True,
             multi_frame_matching=True, attention_impl=att, sinkhorn_impl=sink))
 
+    from e2e_multi_view_matching_tpu_torch.models.convert import init_like_flax_
+
     g = torch.Generator().manual_seed(seed)
     impls = resolve_kernel_impls(
         types.SimpleNamespace(attention_impl="auto", sinkhorn_impl="auto"), "cuda")
@@ -332,12 +511,8 @@ def _full_width_models(seed=0):
                                      max_keypoints=1024, remove_borders=12,
                                      fill_with_random_keypoints=False))
     kernels = matcher(impls.attention_impl, impls.sinkhorn_impl)
-    with torch.no_grad():
-        for m in list(sp.modules()) + list(kernels.modules()):
-            if isinstance(m, (torch.nn.Linear, torch.nn.Conv2d)):
-                fan_in = m.weight[0].numel()
-                m.weight.normal_(0.0, fan_in ** -0.5, generator=g)
-                m.bias.zero_()
+    init_like_flax_(sp, g)
+    init_like_flax_(kernels, g)
     plain = matcher("xla", "mxu")
     plain.load_state_dict(kernels.state_dict())
     return sp, kernels, plain
@@ -379,7 +554,7 @@ def _launches():
     return {**attention_cuda.launches, **sinkhorn_cuda.launches}
 
 
-def main_path_phase(n_tuples=24):
+def main_path_phase(n_tuples=8):
     """`evaluate` at full width on the kernels and on the plain versions."""
     import types
     import warnings
@@ -450,6 +625,305 @@ def main_path_phase(n_tuples=24):
     return launches, (sp, kernels, images, intr, size)
 
 
+class _LossLog:
+    """Collects the per-step train losses and the validation losses that
+    `cli.train.train` logs (with --i_train 1 every step is logged, just after
+    the read of its loss), and the host clock at each step's record."""
+
+    def __init__(self):
+        import logging
+
+        outer = self
+        self.train, self.val, self.step_end = [], [], []
+
+        class Handler(logging.Handler):
+            def emit(self, record):
+                if record.msg.startswith("epoch %3d it"):
+                    outer.step_end.append(time.perf_counter())
+                    outer.train.append(float(record.args[-1]))
+                elif record.msg.startswith("epoch %3d | val loss"):
+                    outer.val.append(float(record.args[-1]))
+
+        self.handler = Handler()
+        self.logger = logging.getLogger("train")
+
+    def __enter__(self):
+        import logging
+
+        self.level = self.logger.level
+        self.logger.setLevel(logging.INFO)
+        self.logger.addHandler(self.handler)
+        return self
+
+    def __exit__(self, *exc):
+        self.logger.removeHandler(self.handler)
+        self.logger.setLevel(self.level)
+
+
+def train_path_phase(n_steps=6):
+    """`cli.train.train` at the full ScanNet 5-tuple training width (V=5,
+    K=400, B=8, 480x480, 7 x (self + 3 x cross), 100 Sinkhorn iterations, no
+    conf MLP, f32) on seeded plane scenes: `n_steps` steps on one repeated
+    batch and one validation batch, on the kernels and again on the plain
+    versions from the same seeded initial state."""
+    import tempfile
+    import warnings
+
+    import torch
+
+    from e2e_multi_view_matching_tpu_torch.cli import train as tcli
+    from e2e_multi_view_matching_tpu_torch.data.synthetic import training_batch
+    from e2e_multi_view_matching_tpu_torch.train import checkpoint as tckpt
+    from e2e_multi_view_matching_tpu_torch.train import step as tstep
+    from e2e_multi_view_matching_tpu_torch.train.optim import build_optimizer
+    from e2e_multi_view_matching_tpu_torch.utils.config import to_device
+
+    B, V, H, W = 8, 5, 480, 480
+    rng = np.random.default_rng(0)
+    t0 = time.perf_counter()
+    batch = training_batch(rng, B, V, H, W, f=577.0)
+    val_batch = training_batch(rng, B, V, H, W, f=577.0)
+    data_s = time.perf_counter() - t0
+
+    def run(tmp, att, sink, steps, tag):
+        opt = tcli.parse_args([
+            "--checkpoint_dir", tmp, "--dataset", "scannet", "--tuple_size", str(V),
+            "--batch_size", str(B), "--n_epochs", "1", "--max_steps", str(steps),
+            "--i_train", "1", "--no_tensorboard", "--attention_impl", att,
+            "--sinkhorn_impl", sink, "--dump_first_grad", f"{tmp}/{tag}"])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_launches()
+        t0 = time.perf_counter()
+        with _LossLog() as losses:
+            state = tcli.train(opt, lambda epoch: iter([batch] * steps),
+                               lambda epoch: iter([val_batch]))
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = _launches()
+        check(state.step == steps and len(losses.train) == steps and len(losses.val) == 1,
+              f"train path ({tag}): {state.step} steps, {len(losses.train)} losses logged")
+        check(all(math.isfinite(x) for x in losses.train + losses.val),
+              f"train path ({tag}): non-finite loss {losses.train} {losses.val}")
+        grads = dict(np.load(f"{tmp}/{tag}_p0.npz"))
+        # steps 2..n of the loop itself: batch to the device, step, read of the
+        # metrics, trackers and logging (step 1 carries cuDNN's plan search)
+        loop_sps = (steps - 1) / (losses.step_end[-1] - losses.step_end[0])
+        return opt, state, counts, {
+            "steps_per_s": loop_sps, "tuples_per_s": loop_sps * B,
+            "train_losses": losses.train, "val_loss": losses.val[0],
+            "seconds_with_setup_and_checkpoints": dt,
+            "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30}, grads
+
+    def step_fn_steps_per_s(opt, state, reps=3):
+        """Steps/s of the step function alone on a batch that already lies on
+        the device (host clock, each step ended by the read of its loss): a
+        per-layer figure, without the loop's host-to-device copy."""
+        sp, _ = tcli.build_models(opt)
+        sp.cuda().eval()
+        step = tstep.make_train_step(sp, opt)
+        dev = {k: to_device(v, "cuda") for k, v in batch.items()}
+        gen = torch.Generator(device="cuda").manual_seed(2)
+        float(step(state, dev, gen)["train_loss"])
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            float(step(state, dev, gen)["train_loss"])
+        return reps / (time.perf_counter() - t0), (sp, step, dev, gen)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        opt_k, state_k, launches, run_k, grads_k = run(tmp, "cuda", "cuda", n_steps, "kernels")
+        fn_sps_k, (sp, step, dev, gen) = step_fn_steps_per_s(opt_k, state_k)
+
+        # a checkpoint that `train` wrote reads back into a fresh state
+        fresh_m = tcli.build_models(opt_k, seed=1)[1].cuda()
+        fresh = tstep.TrainState(fresh_m, build_optimizer(
+            fresh_m.named_parameters(), opt_k.lr, opt_k.decay_rate, opt_k.start_decay,
+            opt_k.end_decay))
+        _, epoch, _, info = tckpt.load_checkpoint(f"{tmp}/{opt_k.exp_name}", fresh, "last")
+        check(epoch == 0 and fresh.step == n_steps and not info["missing"]
+              and not info["unexpected"] and int(fresh.optimizer.count) == n_steps,
+              "train path: the checkpoint did not read back")
+
+        # host syncs inside one step, before its metrics are read
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                metrics = step(state_k, dev, gen)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        syncs = sorted({f"{Path(w.filename).name}:{w.lineno}" for w in caught
+                        if "synchronizing CUDA operation" in str(w.message)})
+        check(math.isfinite(float(metrics["train_loss"])), "train path: non-finite loss")
+        breakdown = _train_breakdown(sp, opt_k, state_k, dev, gen)
+        del state_k, fresh, fresh_m, step, metrics
+        torch.cuda.empty_cache()
+        grad_reference = _grad_reference(tcli, tstep, opt_k, sp, dev, gen)
+        torch.cuda.empty_cache()
+
+        opt_p, state_p, _, run_p, grads_p = run(tmp, "xla", "xla", n_steps, "plain")
+        fn_sps_p, _ = step_fn_steps_per_s(opt_p, state_p)
+        del state_p
+        torch.cuda.empty_cache()
+
+    top = max(float(np.linalg.norm(g)) for g in grads_p.values())
+    diffs = sorted(float(np.linalg.norm(grads_k[k] - grads_p[k])) / top for k in grads_p)
+    worst, median = diffs[-1], diffs[len(diffs) // 2]
+    emit({"phase": "train_path",
+          "config": {"V": V, "K": 400, "B": B, "image": [H, W], "gnn": "7x(self+3xcross)",
+                     "sinkhorn_iters": 100, "conf_mlp": False, "steps": n_steps,
+                     "lr": opt_k.lr},
+          "steps_per_s": run_k["steps_per_s"], "tuples_per_s": run_k["tuples_per_s"],
+          "plain_steps_per_s": run_p["steps_per_s"],
+          "plain_tuples_per_s": run_p["tuples_per_s"],
+          "step_fn_steps_per_s": fn_sps_k, "plain_step_fn_steps_per_s": fn_sps_p,
+          "runs": {"kernels": run_k, "plain": run_p}, "launches": launches,
+          "first_step_grad_leaf_diff_over_top_norm": {
+              "worst": worst, "tol_worst": TRAIN_GRAD_WORST_TOL, "median": median,
+              "tol_median": TRAIN_GRAD_MEDIAN_TOL},
+          "first_step_grad_top_leaf_norm": top, "grad_reference_f64": grad_reference,
+          "host_syncs_in_step": syncs,
+          "data_seconds": data_s, "breakdown_one_step": breakdown})
+    check(top > 0 and worst <= TRAIN_GRAD_WORST_TOL and median <= TRAIN_GRAD_MEDIAN_TOL,
+          f"train path: first-step gradients of the kernel and plain runs differ by "
+          f"{worst} (worst leaf) / {median} (median leaf) of the largest leaf norm")
+    for name, r in (("kernels", run_k), ("plain", run_p)):
+        check(r["train_losses"][-1] < r["train_losses"][0],
+              f"train path ({name}): loss did not fall on the repeated batch: "
+              f"{r['train_losses']}")
+    check(not syncs, f"train path: host syncs inside one train step at {syncs}")
+    # per step: 7 self + 21 cross layers through attn_fwd (400 keypoints are no
+    # multiple of the cross kernel's 64-row tile), one stash solve, one reverse
+    # sweep; the validation batch adds 28 attn_fwd and one scaling-domain solve
+    expected = {"attn_fwd": 28 * (n_steps + 1), "cross_attn_fwd": 0,
+                "sinkhorn_log_stash": n_steps, "sinkhorn_bwd": n_steps,
+                "sinkhorn_scaling": 1, "sinkhorn_log": 0}
+    check(launches == expected, f"train path: launches {launches}, expected {expected}")
+    return launches
+
+
+def _grad_reference(tcli, tstep, opt, sp, dev, gen, n=2):
+    """First-step gradients of `n` tuples from the same seeded initial
+    weights, SuperPoint outputs and GT matches: plain ops in float64 (the
+    reference), and in float32 with every combination of the attention and
+    Sinkhorn implementations. The float64 run says how far float32 itself is
+    from the exact gradient, which is what bounds the agreement of two float32
+    runs at the initial weights, where attention logits and pair scores are
+    extreme. At a conditioned point (the same weights with the parameters
+    named in `CONDITIONED_RESCALE` scaled down) kernels and plain must agree
+    on every leaf."""
+    import copy
+
+    import torch
+
+    from e2e_multi_view_matching_tpu_torch.data.gt_matches import gt_matches_all_pairs
+    from e2e_multi_view_matching_tpu_torch.train.losses import combine_losses, matcher_losses
+
+    sub = {k: v[:n] for k, v in dev.items()}
+    V, H, W = sub["images"].shape[1:4]
+    kpts, scores, descs = tstep.superpoint_outputs(sp, sub["images"], gen)
+    # one set of GT matches (float32, as in training) for all runs
+    gi, gw = gt_matches_all_pairs(kpts, sub["intr"], sub["poses"], sub["depths"],
+                                  opt.match_reproj_err, opt.unmatch_reproj_err)
+    size = torch.empty((n, V, 2), device="cuda")
+    size[..., 0], size[..., 1] = H, W
+
+    def first_grads(att, sink, dtype, rescale=None):
+        o = copy.copy(opt)
+        o.attention_impl, o.sinkhorn_impl = att, sink
+        matcher = tcli.build_models(o)[1].cuda().to(dtype)
+        with torch.no_grad():
+            for name, p in matcher.named_parameters():
+                for key, factor in (rescale or {}).items():
+                    if key in name:
+                        p.mul_(factor)
+        out = matcher(kpts.to(dtype), scores.to(dtype), descs.to(dtype), size.to(dtype),
+                      train=True, full_output=False)
+        peak = float(out["log_assignment"].detach().abs().max())
+        losses = matcher_losses(out, gi, gw.to(dtype), kpts, None, None, pose_loss=False)
+        total, _ = combine_losses(losses, V * (V - 1) // 2, 0.0, 0.0, 0.0)
+        grads = torch.autograd.grad(total, list(matcher.parameters()))
+        return [g.double() for g in grads], peak
+
+    def dist(a, b, top):
+        d = sorted(float((x - y).norm()) / top for x, y in zip(a, b))
+        return {"worst": d[-1], "median": d[len(d) // 2]}
+
+    ref, peak = first_grads("xla", "xla", torch.float64)
+    top = max(float(g.norm()) for g in ref)
+    f32 = {f"attention_{att}_sinkhorn_{sink}": first_grads(att, sink, torch.float32)[0]
+           for att, sink in (("xla", "xla"), ("cuda", "cuda"), ("cuda", "xla"), ("xla", "cuda"))}
+    plain, kernels = f32["attention_xla_sinkhorn_xla"], f32["attention_cuda_sinkhorn_cuda"]
+    out = {"tuples": n, "top_leaf_norm_f64": top, "max_abs_log_p_f64": peak,
+           "randomly_filled_slots": int((scores == 0).sum()), "slots": scores.numel(),
+           "gt_matches": int((gi[:, :, 0, :-1] >= 0).sum()),
+           "f32_vs_f64": {k: dist(g, ref, top) for k, g in f32.items()},
+           "kernels_vs_plain_f32": dist(kernels, plain, top)}
+    del f32, ref
+    limit = TRAIN_GRAD_F64_FACTOR * out["f32_vs_f64"]["attention_xla_sinkhorn_xla"]["worst"] + 1e-3
+    worst_k = out["f32_vs_f64"]["attention_cuda_sinkhorn_cuda"]["worst"]
+    check(worst_k <= limit,
+          f"train path: kernel-run gradients are {worst_k} of the largest leaf norm from "
+          f"float64 (limit {limit}: {TRAIN_GRAD_F64_FACTOR} x the plain float32 run's + 1e-3)")
+
+    ref_c, peak_c = first_grads("xla", "xla", torch.float64, CONDITIONED_RESCALE)
+    plain_c, _ = first_grads("xla", "xla", torch.float32, CONDITIONED_RESCALE)
+    kernels_c, _ = first_grads("cuda", "cuda", torch.float32, CONDITIONED_RESCALE)
+    top_c = max(float(g.norm()) for g in ref_c)
+    out["conditioned"] = {"rescale": CONDITIONED_RESCALE, "max_abs_log_p_f64": peak_c,
+                          "top_leaf_norm_f64": top_c, "tol": TRAIN_GRAD_CONDITIONED_TOL,
+                          "plain_f32_vs_f64": dist(plain_c, ref_c, top_c),
+                          "kernels_f32_vs_f64": dist(kernels_c, ref_c, top_c),
+                          "kernels_vs_plain_f32": dist(kernels_c, plain_c, top_c)}
+    worst_c = out["conditioned"]["kernels_vs_plain_f32"]["worst"]
+    check(top_c > 0 and worst_c <= TRAIN_GRAD_CONDITIONED_TOL,
+          f"train path: at the conditioned point the kernel and plain gradients differ by "
+          f"{worst_c} of the largest leaf norm on the worst leaf (> {TRAIN_GRAD_CONDITIONED_TOL})")
+    return out
+
+
+def _train_breakdown(sp, opt, state, dev, gen, reps=2):
+    """Where one train step's time goes: host clock around synchronized
+    stages, and device time by kernel group under torch.profiler."""
+    import torch
+
+    from e2e_multi_view_matching_tpu_torch.data.gt_matches import gt_matches_all_pairs
+    from e2e_multi_view_matching_tpu_torch.train import step as tstep
+
+    def wall(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            out = fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / reps * 1e3, out
+
+    params = state.optimizer.params
+    sp_ms, sp_out = wall(lambda: tstep.superpoint_outputs(sp, dev["images"], gen))
+    gt_ms, _ = wall(lambda: gt_matches_all_pairs(
+        sp_out[0], dev["intr"], dev["poses"], dev["depths"], opt.match_reproj_err,
+        opt.unmatch_reproj_err))
+    # forward = GT matches + matcher + loss; backward timed on the last graph
+    fwd_ms, (total, _) = wall(lambda: tstep.tuple_losses(
+        state.matcher, opt, state.pose_match_ratio, dev, sp_out, train=True))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    grads = torch.autograd.grad(total, params)
+    torch.cuda.synchronize()
+    bwd_ms = (time.perf_counter() - t0) * 1e3
+    opt_ms, _ = wall(lambda: state.optimizer.step(grads))
+    step = tstep.make_train_step(sp, opt)
+    busy = _device_busy(lambda: step(state, dev, gen), groups={
+        "sinkhorn_fwd": ("log_row_kernel", "log_col_kernel", "output_kernel"),
+        "sinkhorn_bwd": ("bwd_step_kernel", "bwd_col_kernel", "bwd_init_kernel"),
+        "attention_fwd_kernels": ("attn_fwd_kernel", "attn_kernel", "cross_attn")})
+    return {"superpoint_ms": sp_ms, "gt_matches_ms": gt_ms,
+            "forward_ms_gt_matcher_loss": fwd_ms, "matcher_forward_ms": fwd_ms - gt_ms,
+            "backward_ms": bwd_ms, "optimizer_ms": opt_ms, **busy}
+
+
 def breakdown_phase(sp, matcher, images, intr, size, reps=3):
     """Where one 8-tuple sub-chunk's time goes, stage by stage (host clock
     around synchronized work), and the unrolled-Jacobi share of the pose stage."""
@@ -492,9 +966,11 @@ def breakdown_phase(sp, matcher, images, intr, size, reps=3):
           "jacobi_share_of_pose": jacobi_ms / pose_ms, **busy})
 
 
-def _device_busy(fn):
+def _device_busy(fn, groups=None):
     """Device time of one call under torch.profiler against its wall time
-    (the profiler slows the host, so the idle share is an upper bound)."""
+    (the profiler slows the host, so the idle share is an upper bound).
+    `groups` = {label: (substrings of kernel names)} also sums device time by
+    label."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -511,12 +987,30 @@ def _device_busy(fn):
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
     busy_ms = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-    return {"profiled_wall_ms": wall_ms, "profiled_device_busy_ms": busy_ms,
+    grouped = {}
+    for label, needles in (groups or {}).items():
+        grouped[label] = sum(ms for n, ms in by_name.items() if any(x in n for x in needles))
+    return {**({"device_ms_by_group": grouped} if groups else {}),
+            "profiled_wall_ms": wall_ms, "profiled_device_busy_ms": busy_ms,
             "device_idle_share": 1.0 - busy_ms / wall_ms, "device_launches": len(kernels),
             "top_device_ms": [[n[:60], round(ms, 3)] for n, ms in top]}
 
 
-def main():
+PHASES = ("kernel", "reference", "main_path", "train_path")
+
+
+def main(argv=None):
+    import argparse
+
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--phases", default=",".join(PHASES),
+                        help="comma-separated subset of %(default)s to run after build "
+                             "and device; a subset is a debugging aid and prints no "
+                             "final result line")
+    args = parser.parse_args(argv)
+    phases = args.phases.split(",")
+    if not set(phases) <= set(PHASES):
+        parser.error(f"--phases takes a subset of {PHASES}")
     try:
         import torch
     except ImportError:
@@ -529,19 +1023,35 @@ def main():
         print(f"chip_smoke: {PKG} not found beside this script", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
+    by_path = {}
     try:
         build_phase()
-        device_phase()
-        records = kernel_phase()
-        reference_phase()
-        launches, sub_chunk = main_path_phase()
-        breakdown_phase(*sub_chunk)
+        card = device_phase()
+        records = kernel_phase() if "kernel" in phases else []
+        if "reference" in phases:
+            reference_phase()
+        if "main_path" in phases:
+            by_path["eval"], sub_chunk = main_path_phase()
+            breakdown_phase(*sub_chunk)
+            del sub_chunk
+            torch.cuda.empty_cache()
+        if "train_path" in phases:
+            by_path["train"] = train_path_phase()
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1
+    if set(phases) != set(PHASES):
+        print(f"chip_smoke: partial run ({args.phases}), no result line")
+        return 0
     for r in records:
-        r["launches"] = launches[r["name"]]
+        r["launches_by_path"] = {path: counts[r["name"]] for path, counts in by_path.items()}
+        r["launches"] = sum(r["launches_by_path"].values())
+        r["on_main_path"] = r["name"] not in OFF_PATH_KERNELS
+        if r["launches"] < 1 and r["name"] not in OFF_PATH_KERNELS:
+            print(f"chip_smoke FAILED: no main path launched {r['name']}", file=sys.stderr)
+            return 1
     emit({"kernels": records})
+    print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -8,8 +8,9 @@ them into AUC@5/10/20 JSON. Chunks of `eval_scan x eval_batch` tuples are
 queued one ahead: the next chunk's device work is enqueued before the current
 chunk's extrinsics are copied to the host, the only sync of a chunk.
 
-`main()` (checkpoint loading) comes with the port of `train/checkpoint.py`;
-until then callers build the modules and load weights themselves.
+`main()` waits for the dataset readers (`data/tuples.py`); until then callers
+build the modules, load weights (`train/checkpoint.py`, `models/convert.py`)
+and pass the samples themselves.
 """
 
 import argparse
@@ -27,6 +28,7 @@ from e2e_multi_view_matching_tpu_torch.mvba.pipeline import (
 from e2e_multi_view_matching_tpu_torch.utils.config import (
     add_generic_arguments,
     resolve_device,
+    to_device,
 )
 
 log = logging.getLogger("eval_multi_view")
@@ -99,14 +101,6 @@ def infer_subchunk(superpoint, matcher, images, intr, image_size,
     return kpts, out["matches0"], out["conf_scores"], extr
 
 
-def _to_device(arr, device):
-    t = torch.from_numpy(np.ascontiguousarray(arr, dtype=np.float32))
-    if device.type == "cuda":
-        # a pinned source makes the copy asynchronous: no wait for queued work
-        return t.pin_memory().to(device, non_blocking=True)
-    return t.to(device)
-
-
 def _pair_errors(sample, extr, V):
     """(pose, translation, rotation) errors in degrees of every pair (i < j)."""
     out = []
@@ -161,9 +155,9 @@ def evaluate(opt, superpoint, matcher, dataset, pipeline_cfg=MultiViewPipelineCo
         S = -(-len(samples) // eval_batch)
         padded = samples + [samples[-1]] * (S * eval_batch - len(samples))
         images = np.stack([s["images"] for s in padded])
-        images = _to_device(images.reshape((S, eval_batch) + images.shape[1:]), device)
+        images = to_device(images.reshape((S, eval_batch) + images.shape[1:]), device)
         intr = np.stack([s["intr"][:, :3, :3] for s in padded])
-        intr = _to_device(intr.reshape(S, eval_batch, V, 3, 3), device)
+        intr = to_device(intr.reshape(S, eval_batch, V, 3, 3), device)
         H, W = images.shape[3:5]
         image_size = torch.empty((eval_batch, V, 2), device=device)
         image_size[..., 0] = H

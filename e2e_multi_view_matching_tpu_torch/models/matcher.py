@@ -1,6 +1,6 @@
 """Multi-view attentional GNN matcher with Sinkhorn assignment and confidence MLP (PyTorch).
 
-Counterpart of `e2e_multi_view_matching_tpu/models/matcher.py`, eval mode:
+Counterpart of `e2e_multi_view_matching_tpu/models/matcher.py`:
 all views' keypoints form one (B, V*K, D) token tensor; self layers attend
 within a view, cross layers attend every other view jointly; all C(V,2) view
 pairs are scored at once and solved by Sinkhorn as one (B*P, K+1, K+1) batch.
@@ -10,8 +10,14 @@ Submodule names follow the flax names (`kenc.dense_0`, `gnn_3_cross.q_proj`,
 Kernel selection: `attention_impl` "cuda" routes self and cross attention
 through `ops/attention_cuda.py`, "xla" through the plain masked
 `multi_head_attention`; `sinkhorn_impl` "cuda" uses `ops/sinkhorn_cuda.py`,
-"xla"/"mxu" the plain log-domain/scaling-domain iterations. A "cuda" op given a
-CPU tensor runs its plain version.
+"xla"/"mxu" the plain log-domain/scaling-domain iterations. A "cuda" op given
+a CPU tensor runs its plain version.
+
+`forward(..., train=True)` is the training mode: BatchNorm normalises with the
+batch statistics over all axes but the last and moves the running statistics,
+exactly as flax does (biased variance as E[x^2] - E[x]^2, also stored;
+momentum 0.9 on the old value). It is a call argument, as in the JAX package,
+not `nn.Module.train()`.
 """
 
 from dataclasses import dataclass, field
@@ -34,6 +40,7 @@ from e2e_multi_view_matching_tpu_torch.ops.sinkhorn_cuda import log_optimal_tran
 
 ATTENTION_IMPLS = ("xla", "cuda")
 SINKHORN_IMPLS = ("xla", "mxu", "cuda")
+BN_MOMENTUM = 0.9  # weight of the old running statistic (flax `momentum`)
 
 
 def default_gnn_layers(gnn_layers: int = 9, cross_attention_layers: int = 1) -> Tuple[str, ...]:
@@ -57,9 +64,26 @@ class MatcherConfig:
     conf_mlp_hidden: Tuple[int, ...] = (256, 64)
 
 
+def batch_norm(x, bn, train):
+    """BatchNorm over every axis but the last, with flax's arithmetic.
+
+    Eval: running statistics. Train: the batch mean and the biased variance
+    max(E[x^2] - E[x]^2, 0) normalise, and both move the running statistics in
+    place (`torch.nn.BatchNorm1d` would store the unbiased variance)."""
+    if not train:
+        return F.batch_norm(x.reshape(-1, x.shape[-1]), bn.running_mean, bn.running_var,
+                            bn.weight, bn.bias, False, 0.0, bn.eps).reshape(x.shape)
+    rows = x.reshape(-1, x.shape[-1])
+    mean = rows.mean(dim=0)
+    var = torch.clamp((rows * rows).mean(dim=0) - mean * mean, min=0.0)
+    with torch.no_grad():
+        bn.running_mean.mul_(BN_MOMENTUM).add_(mean, alpha=1.0 - BN_MOMENTUM)
+        bn.running_var.mul_(BN_MOMENTUM).add_(var, alpha=1.0 - BN_MOMENTUM)
+    return (x - mean) * (torch.rsqrt(var + bn.eps) * bn.weight) + bn.bias
+
+
 class MLP(nn.Module):
-    """Linear stack with BatchNorm (over the last axis, running statistics) +
-    ReLU between layers."""
+    """Linear stack with BatchNorm (over the last axis) + ReLU between layers."""
 
     def __init__(self, in_dim, channels):
         super().__init__()
@@ -67,19 +91,16 @@ class MLP(nn.Module):
         for i, c in enumerate(channels):
             setattr(self, f"dense_{i}", nn.Linear(in_dim, c))
             if i < self.n - 1:
-                # flax BatchNorm momentum 0.9 is torch momentum 0.1 (training)
-                setattr(self, f"bn_{i}", nn.BatchNorm1d(c, eps=1e-5, momentum=0.1))
+                # holds scale, bias and the running statistics; `batch_norm`
+                # does the arithmetic
+                setattr(self, f"bn_{i}", nn.BatchNorm1d(c, eps=1e-5))
             in_dim = c
 
-    def forward(self, x):
+    def forward(self, x, train=False):
         for i in range(self.n):
             x = getattr(self, f"dense_{i}")(x)
             if i < self.n - 1:
-                bn = getattr(self, f"bn_{i}")
-                x = F.batch_norm(x.reshape(-1, x.shape[-1]), bn.running_mean,
-                                 bn.running_var, bn.weight, bn.bias, False, 0.0,
-                                 bn.eps).reshape(x.shape)
-                x = F.relu(x)
+                x = F.relu(batch_norm(x, getattr(self, f"bn_{i}"), train))
         return x
 
 
@@ -95,7 +116,7 @@ class AttentionalLayer(nn.Module):
         self.merge = nn.Linear(dim, dim)
         self.mlp = MLP(2 * dim, (2 * dim, dim))
 
-    def forward(self, x, source, n_views, n_kpts, mask=None):
+    def forward(self, x, source, n_views, n_kpts, mask=None, train=False):
         """`n_views`, `n_kpts` describe the token structure for the kernels'
         in-kernel mask; `mask` is the plain path's (S, S) mask."""
         q, k, v = self.q_proj(x), self.k_proj(source), self.v_proj(source)
@@ -105,17 +126,19 @@ class AttentionalLayer(nn.Module):
         else:
             message = multi_head_attention(q, k, v, self.num_heads, mask=mask)
         message = self.merge(message)
-        return x + self.mlp(torch.cat([x, message], dim=-1))
+        return x + self.mlp(torch.cat([x, message], dim=-1), train)
 
 
 class MultiViewMatcher(nn.Module):
-    """Joint matcher over V views with K keypoints each (eval mode)."""
+    """Joint matcher over V views with K keypoints each."""
 
     def __init__(self, config=MatcherConfig()):
         super().__init__()
         cfg = config
         if cfg.compute_dtype != "float32":
-            raise NotImplementedError("only float32 is ported (bf16 comes with training)")
+            raise NotImplementedError(
+                "only float32 is ported (bfloat16 comes with the cross-attention "
+                "training kernels, which must take it)")
         if cfg.attention_impl not in ATTENTION_IMPLS:
             raise ValueError(f"attention_impl must be one of {ATTENTION_IMPLS}")
         if cfg.sinkhorn_impl not in SINKHORN_IMPLS:
@@ -134,11 +157,12 @@ class MultiViewMatcher(nn.Module):
         if cfg.conf_mlp:
             self.conf_mlp = MLP(2 * D + 1, tuple(cfg.conf_mlp_hidden) + (1,))
 
-    def forward(self, kpts, scores, descs, image_size, full_output=True):
+    def forward(self, kpts, scores, descs, image_size, train=False, full_output=True):
         """
         Args:
             kpts: (B, V, K, 2) pixel xy; scores: (B, V, K); descs: (B, V, K, D);
             image_size: (B, V, 2) as (H, W) per view.
+            train: BatchNorm mode (batch statistics, running statistics moved).
             full_output: also compute matches and confidence scores.
         Returns:
             dict: "log_assignment" (B, P, K+1, K+1), "pairs" (P, 2) and, with
@@ -151,7 +175,7 @@ class MultiViewMatcher(nn.Module):
         center = torch.stack([size[..., 1], size[..., 0]], dim=-1)[:, :, None, :] / 2.0
         scaling = 0.7 * size.amax(dim=-1)[:, :, None, None]
         kpts_n = (kpts - center) / scaling
-        x = descs + self.kenc(torch.cat([kpts_n, scores[..., None]], dim=-1))
+        x = descs + self.kenc(torch.cat([kpts_n, scores[..., None]], dim=-1), train)
 
         tokens = x.reshape(B, V * K, D)
         xmask = (cross_view_mask(V, K, device=descs.device)
@@ -160,9 +184,9 @@ class MultiViewMatcher(nn.Module):
             layer = getattr(self, f"gnn_{li}_{layer_type}")
             if layer_type == "self":
                 t = tokens.reshape(B * V, K, D)
-                tokens = layer(t, t, 1, K).reshape(B, V * K, D)
+                tokens = layer(t, t, 1, K, train=train).reshape(B, V * K, D)
             else:
-                tokens = layer(tokens, tokens, V, K, mask=xmask)
+                tokens = layer(tokens, tokens, V, K, mask=xmask, train=train)
 
         mdesc = self.final_proj(tokens).reshape(B, V, K, D)
         # pairs (i, j) ordered by j, then i: the lower triangle of (j, i), row-major
@@ -193,7 +217,7 @@ class MultiViewMatcher(nn.Module):
             matched_j = torch.gather(mdesc_j, 2, gather_idx[..., None].expand(B, P, K, D))
             feats = torch.cat([mdesc_i, matched_j, out["matching_scores0"][..., None]],
                               dim=-1)
-            out["conf_scores"] = torch.sigmoid(self.conf_mlp(feats))[..., 0]
+            out["conf_scores"] = torch.sigmoid(self.conf_mlp(feats, train))[..., 0]
         return out
 
 

@@ -1,7 +1,9 @@
 """SuperPoint keypoint detector + descriptor (PyTorch).
 
-Counterpart of `e2e_multi_view_matching_tpu/models/superpoint.py`, eval path
-only: exact-size inputs (`valid_size=None`), no random keypoint fill, f32.
+Counterpart of `e2e_multi_view_matching_tpu/models/superpoint.py` for
+exact-size inputs (`valid_size=None`), f32. With `fill_with_random_keypoints`
+(training) slots without a detection get uniformly random positions from an
+explicit `torch.Generator`; the network is frozen and runs without grad.
 Public layouts stay the JAX package's: images (B, H, W, 1), keypoints (B, K, 2)
 xy, descriptor maps (B, Hc, Wc, D). Inside, the trunk runs NCHW convolutions.
 """
@@ -19,7 +21,7 @@ class SuperPointConfig:
     keypoint_threshold: float = 0.001
     max_keypoints: int = 400
     remove_borders: int = 4
-    # the eval contract; random fill (training) is not part of this port yet
+    # False is the eval contract; training fills empty slots at random
     fill_with_random_keypoints: bool = False
     descriptor_dim: int = 256
     compute_dtype: str = "float32"
@@ -90,21 +92,27 @@ def simple_nms(scores, radius, n_iters=2):
 class SuperPoint(nn.Module):
     """Full detector: (B, H, W, 1) images -> fixed-K keypoints, scores, descriptors.
 
-    Slots beyond the detected count have score 0.
+    Slots beyond the detected count have score 0 (and random positions with
+    `fill_with_random_keypoints`).
     """
 
     def __init__(self, config=SuperPointConfig()):
         super().__init__()
-        if config.fill_with_random_keypoints:
-            raise NotImplementedError("random keypoint fill is not ported yet")
         if config.compute_dtype != "float32":
             raise NotImplementedError("only float32 is ported")
         self.config = config
         self.net = SuperPointNet(config.descriptor_dim)
 
-    def forward(self, image):
+    @torch.no_grad()
+    def forward(self, image, generator=None):
+        """Detect keypoints in (B, H, W, 1) grayscale images in [0, 1].
+
+        `generator`: the keypoint-fill generator (on the images' device);
+        required with `fill_with_random_keypoints`."""
         cfg = self.config
         B, H, W, _ = image.shape
+        if cfg.fill_with_random_keypoints and generator is None:
+            raise ValueError("fill_with_random_keypoints needs a torch.Generator")
         heat, desc_map = self.net(image)
         probs = torch.softmax(heat, dim=-1)[..., :64]
         Hc, Wc = probs.shape[1], probs.shape[2]
@@ -144,6 +152,13 @@ class SuperPoint(nn.Module):
             xs = (top_idx % W8).to(torch.float32)
         kpts = torch.stack([xs, ys], dim=-1)
         valid = top_scores > cfg.keypoint_threshold
+        if cfg.fill_with_random_keypoints:
+            # uniform in [b, W-1-b) x [b, H-1-b), like the JAX fill; drawn for
+            # every slot so that the draw does not depend on the detections
+            r = torch.rand((2, B, K), generator=generator, device=image.device)
+            rand_kpts = torch.stack([b + r[0] * (W - 1 - 2 * b),
+                                     b + r[1] * (H - 1 - 2 * b)], dim=-1)
+            kpts = torch.where(valid[..., None], kpts, rand_kpts)
         top_scores = torch.where(valid, top_scores, 0.0)
         descs = sample_descriptors(kpts, desc_map)
         return {"keypoints": kpts, "scores": top_scores, "descriptors": descs}

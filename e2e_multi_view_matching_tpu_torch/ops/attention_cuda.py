@@ -99,18 +99,8 @@ def plain_view_attention(q, k, v, num_heads, n_views, n_kpts, mode):
     return multi_head_attention(q, k, v, num_heads, mask=mask)
 
 
-def fused_view_attention(q, k, v, num_heads, n_views, n_kpts, mode="cross"):
-    """Masked MHA over view/keypoint tokens.
-
-    Args:
-        q, k, v: (B, S, D) projected tensors with S = n_views * n_kpts.
-        num_heads: head count; n_views, n_kpts: token structure.
-        mode: "cross" (attend other views), "self" (own view) or "full".
-    Returns:
-        (B, S, D) attention output (no output projection).
-    """
-    if not q.is_cuda:
-        return plain_view_attention(q, k, v, num_heads, n_views, n_kpts, mode)
+def _kernel_view_attention(q, k, v, num_heads, n_views, n_kpts, mode):
+    """Forward of `fused_view_attention` on the kernels (CUDA tensors)."""
     B, S, D = q.shape
     h = num_heads
     dh = D // h
@@ -124,3 +114,39 @@ def fused_view_attention(q, k, v, num_heads, n_views, n_kpts, mode="cross"):
     else:
         out = attn_fwd(split(q), split(k), split(v), n_kpts, mode, scale)
     return out.reshape(B, h, S, dh).transpose(1, 2).reshape(B, S, D)
+
+
+class _FusedViewAttention(torch.autograd.Function):
+    """Kernel forward; backward = VJP of the plain version, recomputed from
+    the saved q, k, v (the probabilities are never kept)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, num_heads, n_views, n_kpts, mode):
+        ctx.save_for_backward(q, k, v)
+        ctx.structure = (num_heads, n_views, n_kpts, mode)
+        return _kernel_view_attention(q, k, v, num_heads, n_views, n_kpts, mode)
+
+    @staticmethod
+    def backward(ctx, g):
+        with torch.enable_grad():
+            q, k, v = (x.detach().requires_grad_() for x in ctx.saved_tensors)
+            out = plain_view_attention(q, k, v, *ctx.structure)
+            dq, dk, dv = torch.autograd.grad(out, (q, k, v), g)
+        return dq, dk, dv, None, None, None, None
+
+
+def fused_view_attention(q, k, v, num_heads, n_views, n_kpts, mode="cross"):
+    """Masked MHA over view/keypoint tokens.
+
+    Args:
+        q, k, v: (B, S, D) projected tensors with S = n_views * n_kpts.
+        num_heads: head count; n_views, n_kpts: token structure.
+        mode: "cross" (attend other views), "self" (own view) or "full".
+    Returns:
+        (B, S, D) attention output (no output projection).
+    """
+    if not q.is_cuda:
+        return plain_view_attention(q, k, v, num_heads, n_views, n_kpts, mode)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return _FusedViewAttention.apply(q, k, v, num_heads, n_views, n_kpts, mode)
+    return _kernel_view_attention(q, k, v, num_heads, n_views, n_kpts, mode)

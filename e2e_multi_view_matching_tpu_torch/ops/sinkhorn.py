@@ -1,10 +1,16 @@
 """Log-domain Sinkhorn optimal transport with dustbin augmentation (plain PyTorch).
 
-Counterpart of `e2e_multi_view_matching_tpu/ops/sinkhorn.py`, forward only.
-`log_sinkhorn` is the exact log-domain iteration; `log_sinkhorn_mxu` is the
-stabilized scaling-domain iteration (the algorithm of the CUDA kernel in
-`ops/sinkhorn_cuda.py`, and its plain version). The iteration count of the
-scaling domain rounds UP to a multiple of `absorb_every`.
+Counterpart of `e2e_multi_view_matching_tpu/ops/sinkhorn.py`.
+`log_sinkhorn` is the exact log-domain iteration, differentiable by autograd:
+it is the gradient reference of every Sinkhorn path. `log_sinkhorn_mxu` is the
+stabilized scaling-domain iteration (forward only; the algorithm and the plain
+version of the `sinkhorn_scaling` kernel in `ops/sinkhorn_cuda.py`). Its
+iteration count rounds UP to a multiple of `absorb_every`.
+
+`log_sinkhorn_stash` and `log_sinkhorn_bwd` repeat, step by step, the
+arithmetic of the training kernels `sinkhorn_log_stash` and `sinkhorn_bwd`:
+the forward that keeps every iteration's duals, and the manual reverse sweep
+over them. They are those kernels' plain versions.
 """
 
 import math
@@ -26,6 +32,68 @@ def log_sinkhorn(couplings, log_mu, log_nu, n_iters):
         u = log_mu - torch.logsumexp(couplings + v[:, None, :], dim=2)
         v = log_nu - torch.logsumexp(couplings + u[:, :, None], dim=1)
     return couplings + u[:, :, None] + v[:, None, :]
+
+
+def log_sinkhorn_stash(couplings, log_mu, log_nu, n_iters):
+    """`log_sinkhorn` with max-subtracted log-sum-exps written out, keeping
+    every iteration's duals.
+
+    Returns:
+        (Z (B, M, N), U (B, n_iters, M), V (B, n_iters, N)): u_t and v_t after
+        iteration t; Z = couplings + u_T (+) v_T.
+    """
+    u = torch.zeros_like(log_mu)
+    v = torch.zeros_like(log_nu)
+    U, V = [], []
+    for _ in range(n_iters):
+        a = couplings + v[:, None, :]
+        m1 = a.amax(dim=2)
+        u = log_mu - (torch.log(torch.exp(a - m1[:, :, None]).sum(dim=2)) + m1)
+        b = couplings + u[:, :, None]
+        m0 = b.amax(dim=1)
+        v = log_nu - (torch.log(torch.exp(b - m0[:, None, :]).sum(dim=1)) + m0)
+        U.append(u)
+        V.append(v)
+    Z = couplings + u[:, :, None] + v[:, None, :]
+    return Z, torch.stack(U, dim=1), torch.stack(V, dim=1)
+
+
+def log_sinkhorn_bwd(couplings, U, V, g, log_mu, log_nu):
+    """Manual reverse sweep: the cotangent of `couplings` for the cotangent `g`
+    of Z = `log_sinkhorn_stash(...)[0]`, from the stashed duals.
+
+    Each reverse step rebuilds the column softmax Q_t and the row softmax P_t
+    of iteration t (entries <= 1: the grouping of the exponents keeps them
+    from overflowing), accumulates the cotangent and chains the duals':
+
+        gu_t = [t == T] rowsum(g) - rowsum(Q_t * gv_t)
+        dC  -= Q_t * gv_t + P_t * gu_t
+        gv_{t-1} = -colsum(P_t * gu_t)
+
+    Args:
+        couplings, g: (B, M, N); U: (B, T, M); V: (B, T, N); log_mu (B, M);
+        log_nu (B, N).
+    Returns:
+        (B, M, N) cotangent of the couplings.
+    """
+    T = U.shape[1]
+    G = g
+    gu0 = g.sum(dim=2)
+    gv = g.sum(dim=1)
+    for s in range(T):
+        t = T - 1 - s
+        u_t, v_t = U[:, t], V[:, t]
+        v_prev = V[:, t - 1] if t > 0 else torch.zeros_like(v_t)
+        Q = torch.exp((couplings + u_t[:, :, None]) + (v_t - log_nu)[:, None, :])
+        tmp = Q * gv[:, None, :]
+        gu = -tmp.sum(dim=2)
+        if s == 0:
+            gu = gu0 + gu
+        P = torch.exp((couplings + v_prev[:, None, :]) + (u_t - log_mu)[:, :, None])
+        tmp2 = P * gu[:, :, None]
+        G = G - (tmp + tmp2)
+        gv = -tmp2.sum(dim=1)
+    return G
 
 
 def log_sinkhorn_mxu(couplings, log_mu, log_nu, n_iters, absorb_every=10):

@@ -15,6 +15,7 @@ torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
 from e2e_multi_view_matching_tpu_torch.cli import eval_multi_view  # noqa: E402
+from e2e_multi_view_matching_tpu_torch.cli import train as train_cli  # noqa: E402
 from e2e_multi_view_matching_tpu_torch.utils import config  # noqa: E402
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -36,7 +37,11 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     out = subprocess.run([sys.executable, "-c", f"ROOT = {ROOT!r}\n" + _PROBE],
                          capture_output=True, text=True, timeout=300, check=True)
     result = json.loads(out.stdout.strip().splitlines()[-1])
-    assert len(result["modules"]) >= 20, result["modules"]
+    assert len(result["modules"]) >= 30, result["modules"]
+    # the walk reaches a subpackage only through its __init__.py
+    for name in ("train.step", "train.optim", "train.checkpoint", "data.gt_matches",
+                 "data.synthetic", "cli.train", "utils.trackers"):
+        assert f"e2e_multi_view_matching_tpu_torch.{name}" in result["modules"], name
     assert result["bad"] == [], f"the port pulled in {result['bad']}"
 
 
@@ -50,6 +55,8 @@ def test_entry_points_raise_without_a_gpu(monkeypatch):
                                 no_pipeline=False, compute_dtype="float32")
     with pytest.raises(RuntimeError, match="CUDA"):
         eval_multi_view.evaluate(opt, torch.nn.Identity(), torch.nn.Identity(), [])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train_cli.train(train_cli.parse_args([]), None, None)
     assert config.resolve_device("cpu") == torch.device("cpu")
 
 

@@ -15,7 +15,11 @@ from e2e_multi_view_matching_tpu.models import matcher as jm  # noqa: E402
 from e2e_multi_view_matching_tpu.models import superpoint as jsp  # noqa: E402
 from e2e_multi_view_matching_tpu_torch.models import matcher as tm  # noqa: E402
 from e2e_multi_view_matching_tpu_torch.models import superpoint as tsp  # noqa: E402
-from e2e_multi_view_matching_tpu_torch.models.convert import state_dict_from_flax  # noqa: E402
+from e2e_multi_view_matching_tpu_torch.models.convert import (  # noqa: E402
+    flax_from_state_dict,
+    init_like_flax_,
+    state_dict_from_flax,
+)
 
 SP_CFG = dict(nms_radius=4, keypoint_threshold=0.001, max_keypoints=32, remove_borders=4,
               fill_with_random_keypoints=False)
@@ -175,3 +179,110 @@ class TestBridge:
                 n_leaves += 1
         n_tracked = sum(k.endswith("num_batches_tracked") for k in sd)
         assert n_leaves + n_tracked == len(sd)
+
+
+class TestTraining:
+    """What training adds to the models: the matcher's train mode, the inverse
+    weight bridge, the flax-style initialization, the random keypoint fill."""
+
+    def test_matcher_train_mode_matches_flax_batchnorm(self, rng):
+        """`train=True` on bridged weights and non-trivial running statistics,
+        with the conf MLP: log assignment 1e-5 (relative above 1), and the
+        running statistics after the call 1e-6. Flax normalises with, and
+        stores, the biased batch variance E[x^2] - E[x]^2; at these B*V*K = 96
+        rows torch's own train-mode BatchNorm (unbiased) would be 1% off."""
+        V, K = 3, 16
+        j, variables, port = build_matcher(rng, V, K)
+        inputs = matcher_inputs(rng, V, K)
+        ref, updates = jax.jit(lambda v, *a: j.apply(v, *a, train=True, mutable=["batch_stats"])
+                               )(variables, *map(jnp.asarray, inputs))
+        out = port(*map(torch.from_numpy, inputs), train=True)
+        p, p_ref = out["log_assignment"].detach().exp().numpy(), np.exp(ref["log_assignment"])
+        assert np.max(np.abs(p - p_ref) / np.maximum(p_ref, 1.0)) < 1e-5
+        np.testing.assert_allclose(out["conf_scores"].detach().numpy(), ref["conf_scores"],
+                                   atol=1e-5)
+        new = flax_from_state_dict(port.state_dict())["batch_stats"]
+        moved = 0.0
+        for path, arr in jax.tree_util.tree_flatten_with_path(to_numpy(updates["batch_stats"]))[0]:
+            node, old = new, variables["batch_stats"]
+            for part in path:
+                node, old = node[part.key], old[part.key]
+            np.testing.assert_allclose(node, arr, atol=1e-6, err_msg=str(path))
+            moved = max(moved, float(np.abs(arr - old).max()))
+        assert moved > 1e-3
+        # eval mode afterwards reads the moved statistics and moves nothing
+        before = {k: v.clone() for k, v in port.state_dict().items()}
+        with torch.no_grad():
+            port(*map(torch.from_numpy, inputs))
+        assert all(torch.equal(v, before[k]) for k, v in port.state_dict().items())
+
+    @pytest.mark.parametrize("model", ["superpoint", "matcher"])
+    def test_inverse_bridge_round_trips(self, rng, model):
+        """`flax_from_state_dict(state_dict_from_flax(v)) == v`, leaf by leaf:
+        the map that lets gradients and statistics compare with flax trees."""
+        if model == "superpoint":
+            variables = to_numpy(build_superpoint()[1])
+        else:
+            variables = build_matcher(rng, 3, 16)[1]
+        back = flax_from_state_dict(state_dict_from_flax(variables))
+        for coll in ("params", "batch_stats"):
+            ref = jax.tree_util.tree_flatten_with_path(variables.get(coll, {}))[0]
+            got = jax.tree_util.tree_flatten_with_path(back[coll])[0]
+            assert [p for p, _ in ref] == [p for p, _ in got]
+            for (path, a), (_, b) in zip(ref, got):
+                np.testing.assert_array_equal(np.asarray(a), b, err_msg=str(path))
+        with pytest.raises(ValueError):
+            flax_from_state_dict({"gnn.strange": torch.zeros(2)})
+
+    def test_init_like_flax(self):
+        """LeCun-normal kernels (std fan_in^-0.5), zero biases, BatchNorm at
+        (1, 0, 0, 1), the dustbin score at 1; the same seed gives the same
+        weights."""
+        def make():
+            m = tm.MultiViewMatcher(tm.MatcherConfig(**MATCHER_CFG))
+            return init_like_flax_(m, torch.Generator().manual_seed(0))
+
+        a, b = make(), make()
+        for (k, x), y in zip(a.state_dict().items(), b.state_dict().values()):
+            assert torch.equal(x, y), k
+        w = a.gnn_0_self.mlp.dense_0.weight
+        assert abs(float(w.detach().std()) * w.shape[1] ** 0.5 - 1.0) < 0.05
+        assert float(a.final_proj.bias.detach().abs().max()) == 0.0
+        assert float(a.bin_score.detach()) == 1.0
+        bn = a.kenc.bn_0
+        assert bool((bn.weight == 1).all() and (bn.bias == 0).all()
+                    and (bn.running_mean == 0).all() and (bn.running_var == 1).all())
+
+    def test_random_keypoint_fill(self, rng):
+        """With a threshold no detection passes, every slot is filled:
+        positions uniform inside the border, scores 0, unit descriptors, the
+        same under the same seed and different under another (the JAX fill
+        draws other numbers from its own generator, so only the distribution
+        is compared); without a generator the fill refuses to run; detected
+        slots are those of the run without fill."""
+        b, K, H, W = 4, 32, 64, 96
+        cfg = dict(SP_CFG, keypoint_threshold=2.0, fill_with_random_keypoints=True)
+        sp = tsp.SuperPoint(tsp.SuperPointConfig(**cfg)).eval()
+        sp.load_state_dict(build_superpoint()[2].state_dict())
+        images = torch.from_numpy(rng.uniform(size=(3, H, W, 1)).astype(np.float32))
+        out = sp(images, generator=torch.Generator().manual_seed(5))
+        again = sp(images, generator=torch.Generator().manual_seed(5))
+        other = sp(images, generator=torch.Generator().manual_seed(6))
+        kp = out["keypoints"]
+        assert kp.shape == (3, K, 2) and float(out["scores"].abs().max()) == 0.0
+        assert float(kp[..., 0].min()) >= b and float(kp[..., 0].max()) < W - 1 - b
+        assert float(kp[..., 1].min()) >= b and float(kp[..., 1].max()) < H - 1 - b
+        assert float(kp[..., 0].std()) > 0.2 * (W - 2 * b) and not torch.equal(kp, kp.floor())
+        assert torch.equal(kp, again["keypoints"]) and not torch.equal(kp, other["keypoints"])
+        np.testing.assert_allclose(out["descriptors"].norm(dim=-1).numpy(), 1.0, atol=1e-5)
+        with pytest.raises(ValueError, match="Generator"):
+            sp(images)
+        detect = tsp.SuperPoint(tsp.SuperPointConfig(
+            **dict(cfg, keypoint_threshold=SP_CFG["keypoint_threshold"]))).eval()
+        detect.load_state_dict(sp.state_dict())
+        filled = detect(images, generator=torch.Generator().manual_seed(5))
+        plain = build_superpoint()[2](images)
+        found = plain["scores"] > 0
+        assert bool(found.any())
+        assert torch.equal(filled["keypoints"][found], plain["keypoints"][found])
+        assert torch.equal(filled["scores"], plain["scores"])
