@@ -7,14 +7,15 @@ Phases, each fatal on failure:
   1. build      -- compile every hand-written kernel from `ops/csrc/` (nvcc,
                    one process per source, started together).
   2. device     -- print the card's name and power limit (nvidia-smi).
-  3. kernel     -- each of the six kernels against its plain PyTorch version
+  3. kernel     -- each of the nine kernels against its plain PyTorch version
                    at the shapes of its main path (eval: V=5, K=1024; training:
-                   80 pair matrices of 401 x 401, 100 iterations; the kernels
-                   both paths launch at both), with times,
-                   bounds and the library yardstick; one JSON line per kernel.
-                   The reverse sweep is also held against autograd through the
-                   plain log-domain iteration, at score scale 400 for
-                   finiteness, and against itself for equal bits.
+                   V=5, K=400 and 80 pair matrices of 401 x 401, 100
+                   iterations; the kernels both paths launch at both), with
+                   times, bounds and the library yardstick; one JSON line per
+                   kernel. The backward kernels (cross-attention dq and dk/dv,
+                   the Sinkhorn reverse sweep) are also held against autograd
+                   through the plain versions, and against themselves for
+                   equal bits.
   4. reference  -- the pose pipeline on the card recovers the known poses of a
                    small exact synthetic 5-tuple.
   5. main_path  -- `cli.eval_multi_view.evaluate` at full width (V=5, K=1024,
@@ -36,6 +37,13 @@ Phases, each fatal on failure:
                    the two runs agree, launch counts per step, no host sync
                    inside a step, a checkpoint reads back; steps/s, tuples/s
                    and a per-stage breakdown of one step.
+  7. pose_path  -- stage 2, `cli.train.train --pose_loss --init_exp_name` on
+                   the kernel run of train_path, at the same width with the
+                   conf MLP, on seeded sphere-field scenes: 6 steps plus
+                   validation. Steps/s of the loop, finite match, rotation and
+                   translation losses, the guard's skips, launch counts per
+                   step, no host sync inside a step, first-step gradients of
+                   kernels against plain at a conditioned point.
 The third line from the end is {"kernels": [...]}, then the card's name and
 power limit, and the last line is {"ok": true, "device": {...}}. Without a
 CUDA device, or outside the repository, it exits non-zero and prints no
@@ -56,6 +64,8 @@ PKG = "e2e_multi_view_matching_tpu_torch"
 PEAK_F32_OPS = 67e12  # H100 SXM, FP32 outside the tensor cores (data sheet)
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3 (data sheet)
 ATTN_TOL = 2e-3  # online-softmax reordering drift bound (JAX test_chunked_softmax_drift_bounded)
+CROSS_TRAIN_TOL = 2e-4  # cross-attention training kernels: max |err| / max |reference|
+CROSS_LSE_TOL = 1e-5  # stashed LSE, absolute (a few float32 ulps at |lse| ~ 10)
 SINKHORN_TOL = 2e-4  # transport probabilities (JAX test_pallas_scaling_kernel_matches_xla)
 SINKHORN_EXTREME_TOL = 5e-4  # probabilities at extreme scores (same JAX test)
 SINKHORN_DUAL_TOL = 1e-4  # stashed duals u_t, v_t (f32 reduction order over 100 iterations)
@@ -125,10 +135,27 @@ def build_phase():
     t0 = time.perf_counter()
     logs = cuda_build.build_all(verbose=True)
     dt = time.perf_counter() - t0
+    import re
+
+    def kernel_name(mangled):
+        # a mangled name is a run of <length><identifier>; take the *_kernel
+        # one and the integer template arguments after it (ILi64E -> 64)
+        for m in re.finditer(r"\d+", mangled):
+            for k in range(len(m.group())):  # the length may follow other digits
+                ident = mangled[m.end():m.end() + int(m.group()[k:])]
+                if ident.endswith("_kernel") and "_kernel" not in ident[:-7]:
+                    args = re.findall(r"L[ib](\d+)E", mangled[m.end() + len(ident):])
+                    return ident + (f"<{','.join(args)}>" if args else "")
+        return mangled
+
     for name, log in logs.items():
+        kernel = "?"
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"[ptxas {name}] {line.strip()}")
+            entry = re.search(r"Compiling entry function '(\w+)'", line)
+            if entry:
+                kernel = kernel_name(entry.group(1))
+            elif "registers" in line or "spill" in line:
+                print(f"[ptxas {name}] {kernel}: {line.split(':', 1)[-1].strip()}")
     emit({"phase": "build", "sources": sorted(logs), "seconds": round(dt, 3)})
 
 
@@ -157,22 +184,22 @@ def _attention_records(g):
 
     # eval path (K = 1024): self layers are (B*V, K, D) tokens in mode "full" ->
     # attn_fwd at (160, 1024, 64); cross layers (B, V*K, D) -> cross_attn_fwd at
-    # (32, 5120, 64). Training path (K = 400, no multiple of the cross kernel's
-    # 64-row tile): attn_fwd carries both, self at (160, 400, 64) and cross,
-    # masked, at (32, 2000, 64); those go into attn_fwd's record as `train_shapes`.
+    # (32, 5120, 64). Training path (K = 400): self at (160, 400, 64) and, in
+    # validation, cross at (32, 2000, 64) on per-view tiles of which the last is
+    # ragged; those go into each kernel's record as `train_shapes`. The masked
+    # kernel in cross mode at (32, 2000, 64), which no path runs since the
+    # cross kernels take any K, is timed beside it for comparison.
     jax_file = "e2e_multi_view_matching_tpu/ops/attention_pallas.py"
+    by_name = {}
     for name, Bt, n_views, K, mode, replaces in (
         ("attn_fwd", 8 * V, 1, 1024, "full", f"{jax_file}:51"),
         ("cross_attn_fwd", 8, V, 1024, "cross", f"{jax_file}:74"),
         ("attn_fwd", 8 * V, 1, 400, "full", None),
+        ("cross_attn_fwd", 8, V, 400, "cross", None),
         ("attn_fwd", 8, V, 400, "cross", None),
     ):
         S = n_views * K
         q, k, v = rand(Bt, S, D), rand(Bt, S, D), rand(Bt, S, D)
-        out = ac.fused_view_attention(q, k, v, h, n_views, K, mode)
-        ref = ac.plain_view_attention(q, k, v, h, n_views, K, mode)
-        torch.cuda.synchronize()
-        err = float((out - ref).abs().max())
 
         def split(x):
             return x.reshape(Bt, S, h, dh).transpose(1, 2).contiguous()
@@ -186,6 +213,13 @@ def _attention_records(g):
             run = lambda: ac.attn_fwd(q3, k3, v3, K, mode, scale)  # noqa: E731
         else:
             run = lambda: ac.cross_attn_fwd(q3, k3, v3, V, K, scale)  # noqa: E731
+        # the public dispatch and the wrapper itself, against the plain version
+        out = ac.fused_view_attention(q, k, v, h, n_views, K, mode)
+        ref = ac.plain_view_attention(q, k, v, h, n_views, K, mode)
+        out3 = run()
+        torch.cuda.synchronize()
+        err = max(float((out - ref).abs().max()),
+                  float((out3 - split(ref).reshape(Bt * h, S, dh)).abs().max()))
         ms = cuda_ms(run, 5)
         plain_ms = cuda_ms(lambda: ac.plain_view_attention(q, k, v, h, n_views, K, mode), 3)
         lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask), 3)
@@ -198,21 +232,132 @@ def _attention_records(g):
                     "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
                     "shape": [BH, S, dh]}
         if replaces is None:
-            records[0].setdefault("train_shapes", []).append({"mode": mode, **measured})
+            by_name[name].setdefault("train_shapes", []).append({"mode": mode, **measured})
         else:
-            records.append({"name": name, "route": "cuda",
-                            "source": f"{PKG}/ops/csrc/attention_cuda.cu",
-                            "replaces": replaces, "launches": 0, **measured})
+            by_name[name] = {"name": name, "route": "cuda",
+                             "source": f"{PKG}/ops/csrc/attention_cuda.cu",
+                             "replaces": replaces, "launches": 0, **measured}
+            records.append(by_name[name])
 
-    # the masked kernel's other modes, and its ragged edge, at a smaller shape
-    for mode, n_views, n_kpts in (("self", 3, 200), ("cross", 3, 200), ("full", 1, 333)):
+    # the masked kernel's other modes and its ragged edge, and the cross kernel
+    # on ragged per-view tiles (200 = 3 x 64 + 8), at a smaller shape
+    for name, mode, n_views, n_kpts in (("attn_fwd", "self", 3, 200),
+                                        ("attn_fwd", "cross", 3, 200),
+                                        ("attn_fwd", "full", 1, 333),
+                                        ("cross_attn_fwd", "cross", 3, 200)):
         S = n_views * n_kpts
         q, k, v = rand(2, S, D), rand(2, S, D), rand(2, S, D)
-        out = ac.fused_view_attention(q, k, v, h, n_views, n_kpts, mode)
-        ref = ac.plain_view_attention(q, k, v, h, n_views, n_kpts, mode)
+        split = lambda x: x.reshape(2, S, h, dh).transpose(1, 2).reshape(2 * h, S, dh)  # noqa: E731
+        qs, ks, vs = (split(x).contiguous() for x in (q, k, v))
+        if name == "attn_fwd":
+            out = ac.attn_fwd(qs, ks, vs, n_kpts, mode, 1.0 / math.sqrt(dh))
+        else:
+            out = ac.cross_attn_fwd(qs, ks, vs, n_views, n_kpts, 1.0 / math.sqrt(dh))
+        ref = split(ac.plain_view_attention(q, k, v, h, n_views, n_kpts, mode))
         err = float((out - ref).abs().max())
-        check(err <= ATTN_TOL, f"attn_fwd mode {mode}: max err {err} > {ATTN_TOL}")
-        records[0]["max_abs_err"] = max(records[0]["max_abs_err"], err)
+        check(err <= ATTN_TOL, f"{name} mode {mode} K={n_kpts}: max err {err} > {ATTN_TOL}")
+        by_name[name]["max_abs_err"] = max(by_name[name]["max_abs_err"], err)
+    return records
+
+
+def _cross_attn_train_records(g):
+    """The three kernels of the cross layers under grad at the training shape
+    (32, 2000, 64): V = 5, K = 400, B = 8 tuples x 4 heads; and a small ragged
+    case. Each against its plain twin and against autograd of the plain masked
+    attention; two runs give the same bits."""
+    import torch
+    import torch.nn.functional as F
+
+    from e2e_multi_view_matching_tpu_torch.ops import attention_cuda as ac
+    from e2e_multi_view_matching_tpu_torch.ops.attention import multi_head_attention
+
+    dev = torch.device("cuda")
+    jax_file = "e2e_multi_view_matching_tpu/ops/attention_pallas.py"
+
+    def rand(*shape):
+        return torch.randn(*shape, generator=g, device=dev)
+
+    def rel(a, b):
+        return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+
+    def case(BH, V, K, dh):
+        S = V * K
+        q, k, v, do = rand(BH, S, dh), rand(BH, S, dh), rand(BH, S, dh), rand(BH, S, dh)
+        scale = 1.0 / math.sqrt(dh)
+        o, lse = ac.cross_attn_fwd_lse(q, k, v, V, K, scale)
+        dvec = (do * o).sum(-1)
+        dq = ac.cross_attn_bwd_dq(q, k, v, do, lse, dvec, V, K, scale)
+        dk, dv = ac.cross_attn_bwd_dkv(q, k, v, do, lse, dvec, V, K, scale)
+        o2, lse2 = ac.cross_attn_fwd_lse(q, k, v, V, K, scale)
+        dq2 = ac.cross_attn_bwd_dq(q, k, v, do, lse, dvec, V, K, scale)
+        dk2, dv2 = ac.cross_attn_bwd_dkv(q, k, v, do, lse, dvec, V, K, scale)
+        bits = bool(torch.equal(o, o2) and torch.equal(lse, lse2) and torch.equal(dq, dq2)
+                    and torch.equal(dk, dk2) and torch.equal(dv, dv2))
+        o_p, lse_p = ac.cross_attn_fwd_lse_plain(q, k, v, V, K, scale)
+        grads_p = ac.cross_attn_bwd_plain(q, k, v, do, lse, dvec, V, K, scale)
+        # autograd of the plain masked attention (one head per batch entry)
+        xs = [x.clone().requires_grad_() for x in (q, k, v)]
+        o_ag = multi_head_attention(*xs, 1, mask=ac.cross_view_mask(V, K, device=dev))
+        grads_ag = torch.autograd.grad(o_ag, xs, do)
+        torch.cuda.synchronize()
+        err = {"fwd_lse": {"o_vs_plain": rel(o, o_p), "o_vs_autograd_fwd": rel(o, o_ag.detach()),
+                           "lse_abs": float((lse - lse_p).abs().max())},
+               "bwd_dq": {"vs_plain": rel(dq, grads_p[0]), "vs_autograd": rel(dq, grads_ag[0])},
+               "bwd_dkv": {"vs_plain": max(rel(dk, grads_p[1]), rel(dv, grads_p[2])),
+                           "vs_autograd": max(rel(dk, grads_ag[1]), rel(dv, grads_ag[2]))}}
+        for kname, e in err.items():
+            for what, x in e.items():
+                tol = CROSS_LSE_TOL if what == "lse_abs" else CROSS_TRAIN_TOL
+                check(x <= tol, f"cross_attn_{kname} at {(BH, S, dh)}: {what} {x} > {tol}")
+        check(bits, f"cross-attention training kernels at {(BH, S, dh)}: two runs differ")
+        return (q, k, v, do, o, lse, dvec, scale), err
+
+    small_args, small_err = case(8, 3, 100, 64)  # 100 = 64 + 36: ragged per-view tiles
+    BH, V, K, dh = 32, 5, 400, 64
+    S = V * K
+    args, err = case(BH, V, K, dh)
+    q, k, v, do, o, lse, dvec, scale = args
+    bwd_args = (q, k, v, do, lse, dvec, V, K, scale)
+    ms = {"fwd_lse": cuda_ms(lambda: ac.cross_attn_fwd_lse(q, k, v, V, K, scale), 5),
+          "bwd_dq": cuda_ms(lambda: ac.cross_attn_bwd_dq(*bwd_args), 5),
+          "bwd_dkv": cuda_ms(lambda: ac.cross_attn_bwd_dkv(*bwd_args), 5)}
+    plain_fwd = cuda_ms(lambda: ac.cross_attn_fwd_lse_plain(q, k, v, V, K, scale), 3)
+    plain_bwd = cuda_ms(lambda: ac.cross_attn_bwd_plain(*bwd_args), 3)
+    # library yardstick: SDPA with the same boolean mask, forward, and its
+    # backward (dq, dk, dv together) through autograd
+    mask = ac.cross_view_mask(V, K, device=dev)
+    qs, ks, vs = (x[:, None].clone().requires_grad_() for x in (q, k, v))
+    lib_fwd = cuda_ms(lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask), 3)
+    out = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask)
+    lib_bwd = cuda_ms(lambda: torch.autograd.grad(out, (qs, ks, vs), do[:, None],
+                                                  retain_graph=True), 3)
+    del out, qs, ks, vs
+    pairs = float(BH * S * (V - 1) * K)  # (query, key) pairs of other views
+    rows = float(BH * S)
+    records = []
+    for name, line, ops, nbytes, plain_ms, lib_ms in (
+        ("cross_attn_fwd_lse", 123, pairs * (4 * dh + 1), 4 * (4 * rows * dh + rows),
+         plain_fwd, lib_fwd),
+        ("cross_attn_bwd_dq", 163, pairs * (6 * dh + 3), 4 * (5 * rows * dh + 2 * rows),
+         plain_bwd, lib_bwd),
+        ("cross_attn_bwd_dkv", 190, pairs * (8 * dh + 3), 4 * (6 * rows * dh + 2 * rows),
+         plain_bwd, lib_bwd),
+    ):
+        key = name[len("cross_attn_"):]
+        b_ms, b_by = bound(ops, nbytes)
+        rec = {"name": name, "route": "cuda", "source": f"{PKG}/ops/csrc/attention_cuda.cu",
+               "replaces": f"{jax_file}:{line}", "launches": 0,
+               "max_abs_err": err[key]["o_vs_plain" if key == "fwd_lse" else "vs_plain"],
+               "tol": CROSS_TRAIN_TOL, "errors": err[key], "errors_ragged_8x300x64":
+               small_err[key], "bitwise_repeatable": True, "ms": ms[key],
+               "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+               "shape": [BH, S, dh]}
+        if key != "fwd_lse":
+            rec["plain_and_library_cover"] = "dq, dk and dv together"
+        records.append(rec)
+    records[0]["lse_tol"] = CROSS_LSE_TOL
+    records[0]["kernels_fwd_bwd_ms"] = sum(ms.values())
+    records[0]["library_fwd_bwd_ms"] = lib_fwd + lib_bwd
     return records
 
 
@@ -404,7 +549,8 @@ def kernel_phase():
 
     g = torch.Generator(device="cuda")
     g.manual_seed(0)
-    records = _attention_records(g) + [_sinkhorn_record(g)] + _sinkhorn_train_records(g)
+    records = (_attention_records(g) + _cross_attn_train_records(g) + [_sinkhorn_record(g)]
+               + _sinkhorn_train_records(g))
     for r in records:
         emit({"phase": "kernel", **r})
     return records
@@ -660,13 +806,14 @@ class _LossLog:
         self.logger.setLevel(self.level)
 
 
-def train_path_phase(n_steps=6):
+def train_path_phase(workdir, n_steps=6):
     """`cli.train.train` at the full ScanNet 5-tuple training width (V=5,
     K=400, B=8, 480x480, 7 x (self + 3 x cross), 100 Sinkhorn iterations, no
     conf MLP, f32) on seeded plane scenes: `n_steps` steps on one repeated
     batch and one validation batch, on the kernels and again on the plain
-    versions from the same seeded initial state."""
-    import tempfile
+    versions from the same seeded initial state. Returns the kernel run's
+    launch counts and its experiment name (under `workdir`), which stage 2
+    starts from."""
     import warnings
 
     import torch
@@ -685,12 +832,12 @@ def train_path_phase(n_steps=6):
     val_batch = training_batch(rng, B, V, H, W, f=577.0)
     data_s = time.perf_counter() - t0
 
-    def run(tmp, att, sink, steps, tag):
+    def run(workdir, att, sink, steps, tag):
         opt = tcli.parse_args([
-            "--checkpoint_dir", tmp, "--dataset", "scannet", "--tuple_size", str(V),
+            "--checkpoint_dir", workdir, "--dataset", "scannet", "--tuple_size", str(V),
             "--batch_size", str(B), "--n_epochs", "1", "--max_steps", str(steps),
             "--i_train", "1", "--no_tensorboard", "--attention_impl", att,
-            "--sinkhorn_impl", sink, "--dump_first_grad", f"{tmp}/{tag}"])
+            "--sinkhorn_impl", sink, "--dump_first_grad", f"{workdir}/{tag}"])
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         _reset_launches()
@@ -705,7 +852,7 @@ def train_path_phase(n_steps=6):
               f"train path ({tag}): {state.step} steps, {len(losses.train)} losses logged")
         check(all(math.isfinite(x) for x in losses.train + losses.val),
               f"train path ({tag}): non-finite loss {losses.train} {losses.val}")
-        grads = dict(np.load(f"{tmp}/{tag}_p0.npz"))
+        grads = dict(np.load(f"{workdir}/{tag}_p0.npz"))
         # steps 2..n of the loop itself: batch to the device, step, read of the
         # metrics, trackers and logging (step 1 carries cuDNN's plan search)
         loop_sps = (steps - 1) / (losses.step_end[-1] - losses.step_end[0])
@@ -730,43 +877,42 @@ def train_path_phase(n_steps=6):
             float(step(state, dev, gen)["train_loss"])
         return reps / (time.perf_counter() - t0), (sp, step, dev, gen)
 
-    with tempfile.TemporaryDirectory() as tmp:
-        opt_k, state_k, launches, run_k, grads_k = run(tmp, "cuda", "cuda", n_steps, "kernels")
-        fn_sps_k, (sp, step, dev, gen) = step_fn_steps_per_s(opt_k, state_k)
+    opt_k, state_k, launches, run_k, grads_k = run(workdir, "cuda", "cuda", n_steps, "kernels")
+    fn_sps_k, (sp, step, dev, gen) = step_fn_steps_per_s(opt_k, state_k)
 
-        # a checkpoint that `train` wrote reads back into a fresh state
-        fresh_m = tcli.build_models(opt_k, seed=1)[1].cuda()
-        fresh = tstep.TrainState(fresh_m, build_optimizer(
-            fresh_m.named_parameters(), opt_k.lr, opt_k.decay_rate, opt_k.start_decay,
-            opt_k.end_decay))
-        _, epoch, _, info = tckpt.load_checkpoint(f"{tmp}/{opt_k.exp_name}", fresh, "last")
-        check(epoch == 0 and fresh.step == n_steps and not info["missing"]
-              and not info["unexpected"] and int(fresh.optimizer.count) == n_steps,
-              "train path: the checkpoint did not read back")
+    # a checkpoint that `train` wrote reads back into a fresh state
+    fresh_m = tcli.build_models(opt_k, seed=1)[1].cuda()
+    fresh = tstep.TrainState(fresh_m, build_optimizer(
+        fresh_m.named_parameters(), opt_k.lr, opt_k.decay_rate, opt_k.start_decay,
+        opt_k.end_decay))
+    _, epoch, _, info = tckpt.load_checkpoint(f"{workdir}/{opt_k.exp_name}", fresh, "last")
+    check(epoch == 0 and fresh.step == n_steps and not info["missing"]
+          and not info["unexpected"] and int(fresh.optimizer.count) == n_steps,
+          "train path: the checkpoint did not read back")
 
-        # host syncs inside one step, before its metrics are read
-        torch.cuda.synchronize()
-        with warnings.catch_warnings(record=True) as caught:
-            warnings.simplefilter("always")
-            torch.cuda.set_sync_debug_mode("warn")
-            try:
-                metrics = step(state_k, dev, gen)
-            finally:
-                torch.cuda.set_sync_debug_mode("default")
-        torch.cuda.synchronize()
-        syncs = sorted({f"{Path(w.filename).name}:{w.lineno}" for w in caught
-                        if "synchronizing CUDA operation" in str(w.message)})
-        check(math.isfinite(float(metrics["train_loss"])), "train path: non-finite loss")
-        breakdown = _train_breakdown(sp, opt_k, state_k, dev, gen)
-        del state_k, fresh, fresh_m, step, metrics
-        torch.cuda.empty_cache()
-        grad_reference = _grad_reference(tcli, tstep, opt_k, sp, dev, gen)
-        torch.cuda.empty_cache()
+    # host syncs inside one step, before its metrics are read
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            metrics = step(state_k, dev, gen)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    syncs = sorted({f"{Path(w.filename).name}:{w.lineno}" for w in caught
+                    if "synchronizing CUDA operation" in str(w.message)})
+    check(math.isfinite(float(metrics["train_loss"])), "train path: non-finite loss")
+    breakdown = _train_breakdown(sp, opt_k, state_k, dev, gen)
+    del state_k, fresh, fresh_m, step, metrics
+    torch.cuda.empty_cache()
+    grad_reference = _grad_reference(tcli, tstep, opt_k, sp, dev, gen)
+    torch.cuda.empty_cache()
 
-        opt_p, state_p, _, run_p, grads_p = run(tmp, "xla", "xla", n_steps, "plain")
-        fn_sps_p, _ = step_fn_steps_per_s(opt_p, state_p)
-        del state_p
-        torch.cuda.empty_cache()
+    opt_p, state_p, _, run_p, grads_p = run(workdir, "xla", "xla", n_steps, "plain")
+    fn_sps_p, _ = step_fn_steps_per_s(opt_p, state_p)
+    del state_p
+    torch.cuda.empty_cache()
 
     top = max(float(np.linalg.norm(g)) for g in grads_p.values())
     diffs = sorted(float(np.linalg.norm(grads_k[k] - grads_p[k])) / top for k in grads_p)
@@ -794,14 +940,263 @@ def train_path_phase(n_steps=6):
               f"train path ({name}): loss did not fall on the repeated batch: "
               f"{r['train_losses']}")
     check(not syncs, f"train path: host syncs inside one train step at {syncs}")
-    # per step: 7 self + 21 cross layers through attn_fwd (400 keypoints are no
-    # multiple of the cross kernel's 64-row tile), one stash solve, one reverse
-    # sweep; the validation batch adds 28 attn_fwd and one scaling-domain solve
-    expected = {"attn_fwd": 28 * (n_steps + 1), "cross_attn_fwd": 0,
-                "sinkhorn_log_stash": n_steps, "sinkhorn_bwd": n_steps,
-                "sinkhorn_scaling": 1, "sinkhorn_log": 0}
+    expected = _train_launches(n_steps, val_batches=1)
     check(launches == expected, f"train path: launches {launches}, expected {expected}")
+    return launches, opt_k.exp_name
+
+
+def _train_launches(n_steps, val_batches):
+    """Kernel launches of `n_steps` train steps and `val_batches` validation
+    batches at 7 x (self + 3 x cross): per step 7 self layers on attn_fwd, 21
+    cross layers on the LSE forward and the two backward kernels, one stash
+    solve and one reverse sweep; per validation batch 7 attn_fwd, 21
+    cross_attn_fwd and one scaling-domain solve."""
+    return {"attn_fwd": 7 * (n_steps + val_batches), "cross_attn_fwd": 21 * val_batches,
+            "cross_attn_fwd_lse": 21 * n_steps, "cross_attn_bwd_dq": 21 * n_steps,
+            "cross_attn_bwd_dkv": 21 * n_steps, "sinkhorn_log_stash": n_steps,
+            "sinkhorn_bwd": n_steps, "sinkhorn_scaling": val_batches, "sinkhorn_log": 0}
+
+
+def pose_path_phase(workdir, stage1_exp=None, n_steps=6):
+    """Stage 2: `cli.train.train --pose_loss --init_exp_name <stage-1 run>` at
+    the full ScanNet 5-tuple training width (V=5, K=400, B=8, 480x480, 7 x
+    (self + 3 x cross), 100 Sinkhorn iterations, conf MLP, rot/trans weights
+    726/244, value clip 0.1, non-finite guard, f32) on seeded sphere-field
+    scenes: `n_steps` steps on one repeated batch, then validation on the same
+    batch. Without `stage1_exp` (the phase run alone) a one-step stage-1 run
+    comes first. Steps/s of the loop, finite losses, the guard's skips,
+    launches per step, host syncs inside a step, and first-step gradients of
+    kernels against plain at the conditioned point with the pose term at
+    half of the loss."""
+    import warnings
+
+    import torch
+
+    from e2e_multi_view_matching_tpu_torch.cli import train as tcli
+    from e2e_multi_view_matching_tpu_torch.data.synthetic import (
+        SphereFieldScene,
+        training_batch,
+    )
+    from e2e_multi_view_matching_tpu_torch.train import step as tstep
+    from e2e_multi_view_matching_tpu_torch.utils.config import to_device
+
+    B, V, H, W = 8, 5, 480, 480
+    t0 = time.perf_counter()
+    batch = training_batch(np.random.default_rng(1), B, V, H, W, f=577.0,
+                           scene_cls=SphereFieldScene)
+    data_s = time.perf_counter() - t0
+    common = ["--checkpoint_dir", workdir, "--dataset", "scannet", "--tuple_size", str(V),
+              "--batch_size", str(B), "--i_train", "1", "--no_tensorboard",
+              "--attention_impl", "cuda", "--sinkhorn_impl", "cuda"]
+    if stage1_exp is None:
+        opt1 = tcli.parse_args(common + ["--n_epochs", "1", "--max_steps", "1"])
+        tcli.train(opt1, lambda epoch: iter([batch]), lambda epoch: iter([batch]))
+        stage1_exp = opt1.exp_name
+    # the stage-1 run's best checkpoint is of epoch 0: stage 2 runs epoch 1
+    opt = tcli.parse_args(common + ["--pose_loss", "--init_exp_name", stage1_exp,
+                                    "--n_epochs", "2"])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()
+    t0 = time.perf_counter()
+    with _LossLog() as losses:
+        state = tcli.train(opt, lambda epoch: iter([batch] * n_steps),
+                           lambda epoch: iter([batch]))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = _launches()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    stage1_steps = state.step - n_steps
+    check(len(losses.train) == n_steps and len(losses.val) == 1,
+          f"pose path: {len(losses.train)} steps logged, {len(losses.val)} validations")
+    check(all(math.isfinite(x) for x in losses.train + losses.val),
+          f"pose path: non-finite loss {losses.train} {losses.val}")
+    check(hasattr(state.matcher, "conf_mlp") and state.optimizer.skip_nonfinite
+          and state.optimizer.grad_clip == 0.1 and (opt.rot_weight, opt.trans_weight)
+          == (726.0, 244.0), "pose path: not the stage-2 configuration")
+    check(abs(state.pose_match_ratio - n_steps * tstep.RATIO_INCREMENT) < 1e-12,
+          f"pose path: pose_match_ratio {state.pose_match_ratio} after {n_steps} steps")
+    loop_sps = (n_steps - 1) / (losses.step_end[-1] - losses.step_end[0])
+    expected = _train_launches(n_steps, val_batches=1)
+    val_only = _train_launches(0, val_batches=1)
+    check(launches == expected, f"pose path: launches {launches}, expected {expected}")
+
+    # one more step: its losses, and host syncs inside it before they are read
+    sp, _ = tcli.build_models(opt)
+    sp.cuda().eval()
+    step = tstep.make_train_step(sp, opt)
+    dev = {k: to_device(v, "cuda") for k, v in batch.items()}
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            metrics = step(state, dev, gen)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    syncs = sorted({f"{Path(w.filename).name}:{w.lineno}" for w in caught
+                    if "synchronizing CUDA operation" in str(w.message)})
+    step_losses = {k: float(v) for k, v in metrics.items()}
+    check(all(math.isfinite(x) for x in step_losses.values()) and step_losses["rot_loss"] > 0
+          and step_losses["transl_loss"] > 0, f"pose path: step losses {step_losses}")
+    check(not syncs, f"pose path: host syncs inside one train step at {syncs}")
+    skipped = int(state.optimizer.skipped)
+    breakdown = _pose_breakdown(sp, opt, state, dev, gen)
+    del metrics, step
+    torch.cuda.empty_cache()
+    grad_check = _pose_grad_check(tcli, opt, sp, dev, gen)
+    emit({"phase": "pose_path",
+          "config": {"V": V, "K": 400, "B": B, "image": [H, W], "gnn": "7x(self+3xcross)",
+                     "sinkhorn_iters": 100, "conf_mlp": True, "steps": n_steps,
+                     "rot_weight": opt.rot_weight, "trans_weight": opt.trans_weight,
+                     "grad_clip": opt.grad_clip, "scene": "SphereFieldScene",
+                     "init_exp_name": stage1_exp, "stage1_steps": stage1_steps},
+          "steps_per_s": loop_sps, "tuples_per_s": loop_sps * B,
+          "train_losses": losses.train, "val_loss": losses.val[0],
+          "step_losses_after": step_losses, "pose_match_ratio": state.pose_match_ratio,
+          "guard_skipped_steps": skipped, "launches": launches,
+          "launches_per_step": {k: (v - val_only[k]) / n_steps for k, v in launches.items()},
+          "host_syncs_in_step": syncs, "peak_memory_gib": peak,
+          "seconds_with_setup_and_checkpoints": seconds, "data_seconds": data_s,
+          "breakdown_one_step": breakdown, "first_step_grad_conditioned": grad_check})
     return launches
+
+
+def _pose_breakdown(sp, opt, state, dev, gen, reps=2):
+    """Where one stage-2 step's time goes: the forward (GT matches, matcher
+    with the conf MLP, losses with the eight-point solve) and the backward on
+    the host clock; the pose loss alone (the (B*P)-batched eight-point solve,
+    forward and backward with respect to the confidences) with its device
+    launches; device time of the whole step by kernel group."""
+    import torch
+
+    from e2e_multi_view_matching_tpu_torch.data.gt_matches import gt_matches_all_pairs
+    from e2e_multi_view_matching_tpu_torch.train import step as tstep
+    from e2e_multi_view_matching_tpu_torch.train.losses import matcher_losses
+
+    def wall(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            out = fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / reps * 1e3, out
+
+    sp_out = tstep.superpoint_outputs(sp, dev["images"], gen)
+    fwd_ms, (total, _) = wall(lambda: tstep.tuple_losses(
+        state.matcher, opt, state.pose_match_ratio, dev, sp_out, train=True))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    torch.autograd.grad(total, state.optimizer.params, allow_unused=True)
+    torch.cuda.synchronize()
+    bwd_ms = (time.perf_counter() - t0) * 1e3
+
+    kpts = sp_out[0]
+    B, V = kpts.shape[:2]
+    gi, gw = gt_matches_all_pairs(kpts, dev["intr"], dev["poses"], dev["depths"],
+                                  opt.match_reproj_err, opt.unmatch_reproj_err)
+    size = torch.empty((B, V, 2), device="cuda")
+    size[..., 0], size[..., 1] = dev["images"].shape[2], dev["images"].shape[3]
+    with torch.no_grad():
+        out = state.matcher(*sp_out, size, train=False, full_output=True)
+    conf = out["conf_scores"].clone().requires_grad_()
+    res = {**out, "conf_scores": conf}
+
+    def pose_terms():
+        losses = matcher_losses(res, gi, gw, kpts, dev["intr"], dev["poses"], pose_loss=True)
+        return losses["rot_loss"] + losses["transl_loss"]
+
+    pose_fwd_ms, terms = wall(pose_terms)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    torch.autograd.grad(terms, conf)
+    torch.cuda.synchronize()
+    pose_bwd_ms = (time.perf_counter() - t0) * 1e3
+    pose = _device_busy(lambda: torch.autograd.grad(pose_terms(), conf))
+    step = tstep.make_train_step(sp, opt)
+    busy = _device_busy(lambda: step(state, dev, gen), groups=TRAIN_GROUPS)
+    return {"forward_ms_gt_matcher_losses": fwd_ms, "backward_ms": bwd_ms,
+            "pose_loss_forward_ms": pose_fwd_ms, "pose_loss_backward_ms": pose_bwd_ms,
+            "pose_loss_fwd_bwd_device_launches": pose.get("device_launches"),
+            "pose_loss_fwd_bwd_device_busy_ms": pose.get("profiled_device_busy_ms"),
+            "pose_loss_fwd_bwd_profiled_wall_ms": pose["profiled_wall_ms"], **busy}
+
+
+def _pose_grad_check(tcli, opt, sp, dev, gen, n=2):
+    """First-step gradients of `n` tuples at the conditioned point (the seeded
+    initial weights with `CONDITIONED_RESCALE`) with the pose term at half of
+    the loss: plain float64 (the reference), plain float32 and kernels
+    float32. Every mutual best match counts (threshold 0), so that the
+    eight-point solves have weights at a point where the assignment is soft.
+    Kernels against plain on every leaf: within 2e-4 of the largest leaf norm
+    or, where float32 itself is farther from float64 (the eight-point
+    gradient is ill-conditioned), within 3 x plain float32's distance to
+    float64 + 2e-4."""
+    import copy
+    import dataclasses
+
+    import torch
+
+    from e2e_multi_view_matching_tpu_torch.data.gt_matches import gt_matches_all_pairs
+    from e2e_multi_view_matching_tpu_torch.train import step as tstep
+    from e2e_multi_view_matching_tpu_torch.train.losses import combine_losses, matcher_losses
+
+    sub = {k: v[:n] for k, v in dev.items()}
+    V, H, W = sub["images"].shape[1:4]
+    kpts, scores, descs = tstep.superpoint_outputs(sp, sub["images"], gen)
+    gi, gw = gt_matches_all_pairs(kpts, sub["intr"], sub["poses"], sub["depths"],
+                                  opt.match_reproj_err, opt.unmatch_reproj_err)
+    size = torch.empty((n, V, 2), device="cuda")
+    size[..., 0], size[..., 1] = H, W
+
+    def first_grads(att, sink, dtype):
+        o = copy.copy(opt)
+        o.attention_impl, o.sinkhorn_impl = att, sink
+        matcher = tcli.build_models(o)[1]
+        matcher.config = dataclasses.replace(matcher.config, match_threshold=0.0)
+        matcher = matcher.cuda().to(dtype)
+        with torch.no_grad():
+            for name, p in matcher.named_parameters():
+                for key, factor in CONDITIONED_RESCALE.items():
+                    if key in name:
+                        p.mul_(factor)
+        cast = [x.to(dtype) for x in (kpts, scores, descs, size)]
+        out = matcher(*cast, train=True, full_output=True)
+        losses = matcher_losses(out, gi, gw.to(dtype), cast[0], sub["intr"].to(dtype),
+                                sub["poses"].to(dtype), pose_loss=True)
+        total, _ = combine_losses(losses, V * (V - 1) // 2, 0.5, opt.rot_weight,
+                                  opt.trans_weight)
+        grads = torch.autograd.grad(total, list(matcher.parameters()))
+        return ([g.double() for g in grads], out["matches0"],
+                {k: float(v.detach()) for k, v in losses.items()})
+
+    def dist(a, b, top):
+        d = sorted(float((x - y).norm()) / top for x, y in zip(a, b))
+        return {"worst": d[-1], "median": d[len(d) // 2]}
+
+    ref, m_ref, l_ref = first_grads("xla", "xla", torch.float64)
+    plain, m_plain, l_plain = first_grads("xla", "xla", torch.float32)
+    kernels, m_k, l_k = first_grads("cuda", "cuda", torch.float32)
+    top = max(float(g.norm()) for g in ref)
+    out = {"tuples": n, "rescale": CONDITIONED_RESCALE, "pose_match_ratio": 0.5,
+           "losses_f64": l_ref, "losses_plain_f32": l_plain, "losses_kernels_f32": l_k,
+           "matches_f64": int((m_ref >= 0).sum()),
+           "matches0_agreement_kernels_plain": float((m_k == m_plain).float().mean()),
+           "matches0_agreement_plain_f64": float((m_plain == m_ref).float().mean()),
+           "top_leaf_norm_f64": top, "plain_f32_vs_f64": dist(plain, ref, top),
+           "kernels_f32_vs_f64": dist(kernels, ref, top),
+           "kernels_vs_plain_f32": dist(kernels, plain, top)}
+    limit = max(TRAIN_GRAD_CONDITIONED_TOL, TRAIN_GRAD_F64_FACTOR
+                * out["plain_f32_vs_f64"]["worst"] + TRAIN_GRAD_CONDITIONED_TOL)
+    out["tol"] = limit
+    worst = out["kernels_vs_plain_f32"]["worst"]
+    check(top > 0 and out["matches_f64"] >= 8 * n and l_ref["rot_loss"] > 0,
+          f"pose path: the conditioned point has no pose term to check ({out})")
+    check(worst <= limit, f"pose path: kernel and plain first-step gradients differ by {worst} "
+          f"of the largest leaf norm on the worst leaf (limit {limit})")
+    return out
 
 
 def _grad_reference(tcli, tstep, opt, sp, dev, gen, n=2):
@@ -915,13 +1310,18 @@ def _train_breakdown(sp, opt, state, dev, gen, reps=2):
     bwd_ms = (time.perf_counter() - t0) * 1e3
     opt_ms, _ = wall(lambda: state.optimizer.step(grads))
     step = tstep.make_train_step(sp, opt)
-    busy = _device_busy(lambda: step(state, dev, gen), groups={
-        "sinkhorn_fwd": ("log_row_kernel", "log_col_kernel", "output_kernel"),
-        "sinkhorn_bwd": ("bwd_step_kernel", "bwd_col_kernel", "bwd_init_kernel"),
-        "attention_fwd_kernels": ("attn_fwd_kernel", "attn_kernel", "cross_attn")})
+    busy = _device_busy(lambda: step(state, dev, gen), groups=TRAIN_GROUPS)
     return {"superpoint_ms": sp_ms, "gt_matches_ms": gt_ms,
             "forward_ms_gt_matcher_loss": fwd_ms, "matcher_forward_ms": fwd_ms - gt_ms,
             "backward_ms": bwd_ms, "optimizer_ms": opt_ms, **busy}
+
+
+# device time of a train step by kernel group (substrings of kernel names)
+TRAIN_GROUPS = {
+    "sinkhorn_fwd": ("log_row_kernel", "log_col_kernel", "output_kernel"),
+    "sinkhorn_bwd": ("bwd_step_kernel", "bwd_col_kernel", "bwd_init_kernel"),
+    "attention_fwd_kernels": ("attn_fwd_kernel",),
+    "attention_bwd_kernels": ("cross_attn_bwd",)}
 
 
 def breakdown_phase(sp, matcher, images, intr, size, reps=3):
@@ -996,7 +1396,7 @@ def _device_busy(fn, groups=None):
             "top_device_ms": [[n[:60], round(ms, 3)] for n, ms in top]}
 
 
-PHASES = ("kernel", "reference", "main_path", "train_path")
+PHASES = ("kernel", "reference", "main_path", "train_path", "pose_path")
 
 
 def main(argv=None):
@@ -1023,20 +1423,27 @@ def main(argv=None):
         print(f"chip_smoke: {PKG} not found beside this script", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
+    import tempfile
+
     by_path = {}
     try:
-        build_phase()
-        card = device_phase()
-        records = kernel_phase() if "kernel" in phases else []
-        if "reference" in phases:
-            reference_phase()
-        if "main_path" in phases:
-            by_path["eval"], sub_chunk = main_path_phase()
-            breakdown_phase(*sub_chunk)
-            del sub_chunk
-            torch.cuda.empty_cache()
-        if "train_path" in phases:
-            by_path["train"] = train_path_phase()
+        with tempfile.TemporaryDirectory() as workdir:  # checkpoints of the two stages
+            build_phase()
+            card = device_phase()
+            records = kernel_phase() if "kernel" in phases else []
+            if "reference" in phases:
+                reference_phase()
+            if "main_path" in phases:
+                by_path["eval"], sub_chunk = main_path_phase()
+                breakdown_phase(*sub_chunk)
+                del sub_chunk
+                torch.cuda.empty_cache()
+            stage1_exp = None
+            if "train_path" in phases:
+                by_path["train"], stage1_exp = train_path_phase(workdir)
+                torch.cuda.empty_cache()
+            if "pose_path" in phases:
+                by_path["pose"] = pose_path_phase(workdir, stage1_exp)
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1

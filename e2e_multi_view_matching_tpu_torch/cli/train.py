@@ -1,11 +1,16 @@
-"""Training loop: stage-1 training around one train step (PyTorch).
+"""Training loop: two-stage training around one train step (PyTorch).
 
 Counterpart of `e2e_multi_view_matching_tpu/cli/train.py`. `train(opt,
 train_batches, val_batches, device="cuda")` is the loop: models and state
 (fresh, resumed with `--exp_name`, or initialized with `--init_exp_name`), the
 step loop with `--max_steps` and `--i_train` logging, validation after every
 epoch, and the checkpoints `last_model.ckpt`, `{epoch:06d}_model.ckpt`,
-`best_model.ckpt` beside `cfg.json`. The batches come from the caller:
+`best_model.ckpt` beside `cfg.json`. Stage 1 trains the match loss; stage 2
+(`--pose_loss --init_exp_name <stage-1 run>`) starts from the stage-1 run's
+best weights, adds the confidence MLP and blends in the pose loss of the
+weighted eight-point solve on the ramp of `pose_match_ratio`, with the value
+clip and the non-finite guard in the optimizer. The batches come from the
+caller:
 
     opt = parse_args(["--checkpoint_dir", ckpts, "--dataset", "scannet",
                       "--tuple_size", "5", "--batch_size", "8"])
@@ -16,7 +21,7 @@ dicts of numpy arrays: images (B, V, H, W, 1), intr (B, V, 3|4, 3|4), poses
 (B, V, 4, 4) cam->world, depths (B, V, H, W). `main()` parses the flags and
 stops: the dataset readers that would feed it are not ported yet.
 
-Not ported yet: stage 2 (`--pose_loss`), `--model_parallel` / `--multi_host`
+Not ported yet: `--model_parallel` / `--multi_host`
 (the distributed slice: `parallel/mesh.py`, `mvba/distributed.py`),
 tensorboard and `--profile_steps` (`utils/tblog.py`).
 """
@@ -148,10 +153,6 @@ def train(opt, train_batches, val_batches, device="cuda"):
         device: "cuda" by default; raises if no GPU is present.
     """
     device = resolve_device(device)
-    if opt.pose_loss:
-        raise NotImplementedError(
-            "stage 2 (--pose_loss) is not ported yet: it needs the gradient of the "
-            "eight-point solve (the safe_eigh JVP)")
     if getattr(opt, "compute_dtype", "float32") == "float32":
         # f32 means f32: no TF32 in cuDNN convolutions or matmuls
         torch.backends.cudnn.allow_tf32 = False

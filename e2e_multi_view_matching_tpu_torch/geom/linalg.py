@@ -1,7 +1,6 @@
 """Symmetric eigendecomposition, null vectors and small closed-form solvers (PyTorch).
 
-Counterpart of `e2e_multi_view_matching_tpu/geom/linalg.py`, forward only
-(the gap-clamped JVP of `safe_eigh` belongs to training).
+Counterpart of `e2e_multi_view_matching_tpu/geom/linalg.py`.
 
 No function here synchronises the host with the device. `torch.linalg.eigh`,
 `cholesky` and `solve` check their error flags with a host sync on CUDA, so:
@@ -9,6 +8,11 @@ No function here synchronises the host with the device. `torch.linalg.eigh`,
 Cholesky and LU solves use the `_ex` variants with `check_errors=False`, with
 a failed factorization turned into NaN as `jax.scipy.linalg.cho_factor` and
 `jnp.linalg.solve` return it, so the callers' `isfinite` fallbacks hold.
+
+`safe_eigh` differentiates as the JAX package's gap-clamped custom JVP does,
+transposed into a VJP; autograd through the unrolled Jacobi would give
+another gradient (and an unbounded one at close eigenvalues). The other
+functions are compositions of smooth guarded ops, differentiated by autograd.
 """
 
 import functools
@@ -27,18 +31,46 @@ def _sym(A):
     return 0.5 * (A + A.transpose(-1, -2))
 
 
+_GAP_EPS = 1e-6  # 1/(w_j - w_i) is clipped to magnitude <= 1/_GAP_EPS
+
+
+class _SafeEigh(torch.autograd.Function):
+    """Sorted Jacobi forward; backward = the transpose of JAX's
+    `_safe_eigh_jvp`: for dA_s = sym(dA), dw = diag(V^T dA_s V) and
+    dV = V (F o V^T dA_s V), so
+        gA = sym(V (diag(gw) + F o (V^T gV)) V^T)
+    with F_ij = 1 / (w_j - w_i), magnitude clamped at 1/_GAP_EPS, F_ii = 0."""
+
+    @staticmethod
+    def forward(ctx, A, n_sweeps):
+        w, V = jacobi_eigh(A, n_sweeps=n_sweeps)
+        w, order = torch.sort(w, dim=-1)
+        V = torch.gather(V, -1, order[..., None, :].expand(V.shape))
+        ctx.save_for_backward(w, V)
+        return w, V
+
+    @staticmethod
+    def backward(ctx, gw, gV):
+        w, V = ctx.saved_tensors
+        gap = w[..., None, :] - w[..., :, None]
+        sign = torch.where(gap >= 0, 1.0, -1.0)
+        F = 1.0 / (sign * torch.clamp(gap.abs(), min=_GAP_EPS))
+        F = F * (1.0 - _eye(w.shape[-1], w))
+        inner = F * (V.transpose(-1, -2) @ gV) if gV is not None else torch.zeros_like(V)
+        if gw is not None:
+            inner = inner + torch.diag_embed(gw)
+        return _sym(V @ inner @ V.transpose(-1, -2)), None
+
+
 def safe_eigh(A, n_sweeps=8):
-    """Eigendecomposition of a symmetric matrix.
+    """Eigendecomposition of a symmetric matrix with gap-clamped gradients.
 
     Args:
         A: (..., n, n) symmetric.
     Returns:
         (eigenvalues (..., n) ascending, eigenvectors (..., n, n) columns).
     """
-    w, V = jacobi_eigh(A, n_sweeps=n_sweeps)
-    w, order = torch.sort(w, dim=-1)
-    V = torch.gather(V, -1, order[..., None, :].expand(V.shape))
-    return w, V
+    return _SafeEigh.apply(A, n_sweeps)
 
 
 def smallest_eigvec(A):

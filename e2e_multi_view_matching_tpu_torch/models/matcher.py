@@ -137,8 +137,8 @@ class MultiViewMatcher(nn.Module):
         cfg = config
         if cfg.compute_dtype != "float32":
             raise NotImplementedError(
-                "only float32 is ported (bfloat16 comes with the cross-attention "
-                "training kernels, which must take it)")
+                "only float32 is ported (bfloat16 compute, kernels included, is "
+                "its own item of the port)")
         if cfg.attention_impl not in ATTENTION_IMPLS:
             raise ValueError(f"attention_impl must be one of {ATTENTION_IMPLS}")
         if cfg.sinkhorn_impl not in SINKHORN_IMPLS:

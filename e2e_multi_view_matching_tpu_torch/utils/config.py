@@ -31,8 +31,7 @@ def add_generic_arguments(parser):
                              "grad), xla = plain log domain, mxu = plain scaling domain")
     parser.add_argument("--compute_dtype", type=str, default="float32",
                         choices=["float32"],
-                        help="matmul compute dtype (bfloat16 comes with the cross-attention "
-                             "training kernels)")
+                        help="matmul compute dtype (bfloat16 compute is not ported yet)")
     parser.add_argument("--device", type=str, default="cuda",
                         help="torch device; the CPU runs only when asked for")
     return parser

@@ -45,6 +45,7 @@ from e2e_multi_view_matching_tpu_torch.mvba import translation_averaging as ttra
 from e2e_multi_view_matching_tpu_torch.pose.two_view_ba import (  # noqa: E402
     bundle_adjust_two_view as t_two_view_ba,
 )
+from tests.torch_memory import teardown_module  # noqa: E402,F401
 
 
 def t(x):

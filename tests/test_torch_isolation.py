@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: it imports neither JAX nor flax nor anything
 of the JAX package, and its entry points refuse to fall back to the CPU."""
 
+import ast
 import json
 import os
 import subprocess
@@ -39,10 +40,30 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     result = json.loads(out.stdout.strip().splitlines()[-1])
     assert len(result["modules"]) >= 30, result["modules"]
     # the walk reaches a subpackage only through its __init__.py
-    for name in ("train.step", "train.optim", "train.checkpoint", "data.gt_matches",
-                 "data.synthetic", "cli.train", "utils.trackers"):
+    for name in ("train.step", "train.optim", "train.checkpoint", "train.losses",
+                 "data.gt_matches", "data.synthetic", "cli.train", "utils.trackers",
+                 "geom.linalg", "geom.eightpoint", "ops.attention_cuda"):
         assert f"e2e_multi_view_matching_tpu_torch.{name}" in result["modules"], name
     assert result["bad"] == [], f"the port pulled in {result['bad']}"
+
+
+def test_chip_smoke_imports_no_jax_and_nothing_of_the_jax_package():
+    """Every import statement of `chip_smoke.py`, at any depth (it imports
+    most modules inside its phases), names torch, numpy, the standard library
+    or the port, never JAX, flax or the JAX package."""
+    tree = ast.parse(open(os.path.join(ROOT, "chip_smoke.py")).read())
+    names = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names.update(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom):
+            names.add(node.module)
+    assert "e2e_multi_view_matching_tpu_torch.ops.attention_cuda" in {
+        f"{n}.{a.name}" for node in ast.walk(tree) if isinstance(node, ast.ImportFrom)
+        for n in [node.module] for a in node.names}
+    bad = sorted(n for n in names if n.split(".")[0] in ("jax", "jaxlib", "flax",
+                                                          "e2e_multi_view_matching_tpu"))
+    assert bad == [], f"chip_smoke.py imports {bad}"
 
 
 def test_entry_points_raise_without_a_gpu(monkeypatch):

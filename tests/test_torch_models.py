@@ -20,6 +20,7 @@ from e2e_multi_view_matching_tpu_torch.models.convert import (  # noqa: E402
     init_like_flax_,
     state_dict_from_flax,
 )
+from tests.torch_memory import teardown_module  # noqa: E402,F401
 
 SP_CFG = dict(nms_radius=4, keypoint_threshold=0.001, max_keypoints=32, remove_borders=4,
               fill_with_random_keypoints=False)

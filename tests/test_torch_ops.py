@@ -30,6 +30,7 @@ from e2e_multi_view_matching_tpu_torch.ops import attention as tattn  # noqa: E4
 from e2e_multi_view_matching_tpu_torch.ops import attention_cuda  # noqa: E402
 from e2e_multi_view_matching_tpu_torch.ops import sinkhorn as tsink  # noqa: E402
 from e2e_multi_view_matching_tpu_torch.ops import sinkhorn_cuda  # noqa: E402
+from tests.torch_memory import teardown_module  # noqa: E402,F401
 
 
 def t(x):
@@ -62,17 +63,17 @@ class TestAttention:
         np.testing.assert_allclose(out, pallas, atol=2e-5)
 
     @pytest.mark.parametrize("mode", ["full", "cross"])
-    def test_recompute_vjp_matches_jax(self, rng, mode, monkeypatch):
-        """The autograd function that carries the kernels' forward: its
-        backward recomputes the VJP through the plain attention from the saved
-        q, k, v. Here its forward is the plain version too (no card), so the
-        test holds the backward against `jax.grad` through JAX's
+    def test_recompute_vjp_matches_jax(self, rng, mode):
+        """The autograd function that carries the kernels: for a full (self)
+        layer its backward recomputes the VJP through the plain attention from
+        the saved q, k, v; for a cross layer it differentiates from the
+        stashed LSE (`tests/test_torch_cross_attn.py` holds those pieces
+        against JAX's kernels). On CPU tensors both run their plain versions,
+        so the test holds the backward against `jax.grad` through JAX's
         `multi_head_attention`: 5e-5, the JAX package's bound for its own
         attention gradients in f32."""
         V, K, D, h = 3, 16, 32, 2
         q, k, v, w = (rng.normal(size=(2, V * K, D)).astype(np.float32) for _ in range(4))
-        monkeypatch.setattr(attention_cuda, "_kernel_view_attention",
-                            attention_cuda.plain_view_attention)
         qt, kt, vt = (t(x).requires_grad_() for x in (q, k, v))
         out = attention_cuda._FusedViewAttention.apply(qt, kt, vt, h, V, K, mode)
         grads = torch.autograd.grad((out * t(w)).sum(), (qt, kt, vt))
@@ -81,7 +82,7 @@ class TestAttention:
                        argnums=(0, 1, 2))(q, k, v)
         for g, r in zip(grads, ref):
             np.testing.assert_allclose(g.numpy(), np.asarray(r), atol=5e-5)
-        # on a CPU tensor the public function differentiates its plain version
+        # under grad the public function takes the same autograd function
         out = attention_cuda.fused_view_attention(qt, kt, vt, h, V, K, mode)
         for g, r in zip(torch.autograd.grad((out * t(w)).sum(), (qt, kt, vt)), ref):
             np.testing.assert_allclose(g.numpy(), np.asarray(r), atol=5e-5)
@@ -98,6 +99,8 @@ class TestAttention:
             attention_cuda.attn_fwd(x, x, x, 64, "full", 0.25)
         with pytest.raises(ValueError):
             attention_cuda.cross_attn_fwd(x, x, x, 2, 64, 0.25)
+        with pytest.raises(ValueError):
+            attention_cuda.cross_attn_fwd_lse(x, x, x, 2, 64, 0.25)
         c = torch.zeros(2, 9, 9)
         with pytest.raises(ValueError):
             sinkhorn_cuda.sinkhorn_scaling(c, c[:, :, 0], c[:, 0], 10, 0.0)
@@ -287,7 +290,9 @@ class TestKernels:
         out = attention_cuda.fused_view_attention(q, k, v, h, V, K, mode)
         ref = attention_cuda.plain_view_attention(q, k, v, h, V, K, mode)
         assert float((out - ref).abs().max()) < 2e-3
-        name = "cross_attn_fwd" if mode == "cross" and K % 64 == 0 else "attn_fwd"
+        # every cross layer with more than one view takes the cross kernel,
+        # whatever K (ragged per-view tiles), as in the JAX dispatch
+        name = "cross_attn_fwd" if mode == "cross" and V > 1 else "attn_fwd"
         assert attention_cuda.launches[name] == before[name] + 1
 
     @pytest.mark.parametrize("shape,scale,tol", [

@@ -32,6 +32,7 @@ from e2e_multi_view_matching_tpu_torch.models import matcher as tm  # noqa: E402
 from e2e_multi_view_matching_tpu_torch.models import superpoint as tsp  # noqa: E402
 from e2e_multi_view_matching_tpu_torch.models.convert import state_dict_from_flax  # noqa: E402
 from e2e_multi_view_matching_tpu_torch.mvba.pipeline import multi_view_pose_device  # noqa: E402
+from tests.torch_memory import teardown_module  # noqa: E402,F401
 
 V, K, H, W, D = 5, 64, 96, 128, 64
 SP_CFG = dict(nms_radius=4, keypoint_threshold=0.001, max_keypoints=K, remove_borders=4,

@@ -27,6 +27,7 @@ from e2e_multi_view_matching_tpu_torch.train import checkpoint as tckpt  # noqa:
 from e2e_multi_view_matching_tpu_torch.train import losses as tlosses  # noqa: E402
 from e2e_multi_view_matching_tpu_torch.train import optim as toptim  # noqa: E402
 from e2e_multi_view_matching_tpu_torch.train.step import TrainState  # noqa: E402
+from tests.torch_memory import teardown_module  # noqa: E402,F401
 
 
 def t(x):
@@ -112,12 +113,6 @@ class TestLosses:
         np.testing.assert_allclose(float(tot), float(tot_ref), rtol=1e-5)
         for k in sc_ref:
             np.testing.assert_allclose(float(sc[k]), float(sc_ref[k]), rtol=1e-5)
-
-    def test_pose_loss_is_refused_until_ported(self, rng):
-        log_p, gi, gw = self._case(rng)
-        with pytest.raises(NotImplementedError, match="safe_eigh"):
-            tlosses.matcher_losses({"log_assignment": t(log_p)}, t(gi), t(gw),
-                                   None, None, None, pose_loss=True)
 
 
 def _opt_case(rng):

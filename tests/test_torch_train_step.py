@@ -42,6 +42,7 @@ from e2e_multi_view_matching_tpu_torch.ops import sinkhorn_cuda  # noqa: E402
 from e2e_multi_view_matching_tpu_torch.train import optim as toptim  # noqa: E402
 from e2e_multi_view_matching_tpu_torch.train import step as tstep  # noqa: E402
 from e2e_multi_view_matching_tpu_torch.utils import config as tconfig  # noqa: E402
+from tests.torch_memory import teardown_module  # noqa: E402,F401
 
 B, V, K, H, W, D = 2, 3, 32, 64, 96, 64
 SP_CFG = dict(nms_radius=4, keypoint_threshold=0.0, max_keypoints=K, remove_borders=4,
@@ -321,8 +322,8 @@ def test_cli_train_writes_checkpoints_resumes_and_initializes(env, tmp_path, mon
 
 def test_cli_flags_match_jax_and_unported_modes_are_refused(capsys):
     """`parse_args` keeps the JAX flags' names and defaults (the port adds
-    `--device`); distributed flags, profiling, stage 2 and `main()` say what
-    they wait for instead of running something else."""
+    `--device`); distributed flags, profiling and `main()` say what they
+    wait for instead of running something else."""
     from e2e_multi_view_matching_tpu.cli import train as jcli
 
     ours, ref = vars(tcli.parse_args([])), vars(jcli.parse_args([]))
@@ -335,5 +336,3 @@ def test_cli_flags_match_jax_and_unported_modes_are_refused(capsys):
     assert "Queue 1 item 13" in capsys.readouterr().err
     with pytest.raises(SystemExit, match="dataset readers"):
         tcli.main(["--checkpoint_dir", "x"])
-    with pytest.raises(NotImplementedError, match="safe_eigh"):
-        tcli.train(tcli.parse_args(["--pose_loss"]), None, None, device="cpu")
