@@ -5,7 +5,8 @@
 
 Phases, each fatal on failure:
   1. build      -- compile every hand-written kernel from `ops/csrc/` (nvcc,
-                   one process per source, started together).
+                   one process per source, started together); a ptxas spill
+                   in an attention kernel fails it.
   2. device     -- print the card's name and power limit (nvidia-smi).
   3. kernel     -- each of the nine kernels against its plain PyTorch version
                    at the shapes of its main path (eval: V=5, K=1024; training:
@@ -91,6 +92,9 @@ CONDITIONED_RESCALE = {"q_proj": 1 / 4, "k_proj": 1 / 4, "final_proj": 1 / 32}
 # Held against its plain version in the kernel phase only: no entry point of
 # the reference package asks for the exact log-domain iteration without grad.
 OFF_PATH_KERNELS = ("sinkhorn_log",)
+# Sources whose kernels must not spill registers: the build phase fails on a
+# spill (the first dk/dv kernel lost 5x to one).
+SPILL_FREE_SOURCES = ("attention_cuda",)
 
 
 class SmokeFailure(RuntimeError):
@@ -148,6 +152,7 @@ def build_phase():
                     return ident + (f"<{','.join(args)}>" if args else "")
         return mangled
 
+    spilled = []
     for name, log in logs.items():
         kernel = "?"
         for line in log.splitlines():
@@ -156,7 +161,11 @@ def build_phase():
                 kernel = kernel_name(entry.group(1))
             elif "registers" in line or "spill" in line:
                 print(f"[ptxas {name}] {kernel}: {line.split(':', 1)[-1].strip()}")
+                spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+                if name in SPILL_FREE_SOURCES and spill and int(spill.group(1)) + int(spill.group(2)):
+                    spilled.append(f"{kernel} ({spill.group(0)})")
     emit({"phase": "build", "sources": sorted(logs), "seconds": round(dt, 3)})
+    check(not spilled, f"ptxas spills: {'; '.join(spilled)}")
 
 
 def device_phase():
@@ -166,6 +175,25 @@ def device_phase():
     line = out.stdout.strip().splitlines()[0]
     print(line, flush=True)
     return line
+
+
+def _occupancy(name, BH, S, n_views, n_kpts, dh, mode):
+    """Registers, blocks per SM and waves on this card of a forward attention
+    kernel at one shape, from the CUDA runtime. The grid: query tiles of each
+    view for the cross kernels, of all S rows for `attn_fwd`."""
+    import torch
+
+    from e2e_multi_view_matching_tpu_torch.ops import attention_cuda as ac
+
+    info = ac.fwd_kernel_info(name, dh, mode)
+    if name == "attn_fwd":
+        blocks = BH * math.ceil(S / info["tile_rows"])
+    else:
+        blocks = BH * n_views * math.ceil(n_kpts / info["tile_rows"])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return {"registers": info["registers"], "blocks_per_sm": info["blocks_per_sm"],
+            "shared_bytes": info["shared_bytes"], "blocks": blocks,
+            "waves": blocks / (info["blocks_per_sm"] * sms)}
 
 
 def _attention_records(g):
@@ -230,7 +258,7 @@ def _attention_records(g):
         check(err <= ATTN_TOL, f"{name} {mode} K={K}: max |kernel - plain| {err} > {ATTN_TOL}")
         measured = {"max_abs_err": err, "tol": ATTN_TOL, "ms": ms, "plain_ms": plain_ms,
                     "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
-                    "shape": [BH, S, dh]}
+                    "shape": [BH, S, dh], **_occupancy(name, BH, S, n_views, K, dh, mode)}
         if replaces is None:
             by_name[name].setdefault("train_shapes", []).append({"mode": mode, **measured})
         else:
@@ -352,7 +380,9 @@ def _cross_attn_train_records(g):
                small_err[key], "bitwise_repeatable": True, "ms": ms[key],
                "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
                "shape": [BH, S, dh]}
-        if key != "fwd_lse":
+        if key == "fwd_lse":
+            rec.update(_occupancy(name, BH, S, V, K, dh, "cross"))
+        else:
             rec["plain_and_library_cover"] = "dq, dk and dv together"
         records.append(rec)
     records[0]["lse_tol"] = CROSS_LSE_TOL

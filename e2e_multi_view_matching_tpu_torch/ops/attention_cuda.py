@@ -37,7 +37,10 @@ _SIGNATURES = {
     "cross_attn_fwd_lse": (_I, [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P]),
     "cross_attn_bwd_dq": (_I, [_P] * 7 + [_I] * 5 + [_F, _P]),
     "cross_attn_bwd_dkv": (_I, [_P] * 8 + [_I] * 5 + [_F, _P]),
+    "attn_fwd_info": (_I, [_I, _I, _P]),
 }
+_FWD_KERNELS = {("attn_fwd", "full"): 0, ("attn_fwd", "self"): 1, ("attn_fwd", "cross"): 2,
+                ("cross_attn_fwd", "cross"): 3, ("cross_attn_fwd_lse", "cross"): 4}
 
 # kernel launches since the last reset, one per wrapper call that launched
 launches = {"attn_fwd": 0, "cross_attn_fwd": 0, "cross_attn_fwd_lse": 0,
@@ -116,6 +119,18 @@ def cross_attn_fwd_lse(q, k, v, n_views, n_kpts, scale):
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(), BH, S,
         dh, n_views, n_kpts, scale, _stream(q)))
     return out, lse
+
+
+def fwd_kernel_info(name, dh, mode="cross"):
+    """Occupancy of a forward kernel on the current card, as the CUDA runtime
+    reports it: {blocks_per_sm, registers, local_bytes, shared_bytes,
+    tile_rows (query rows per block)}."""
+    info = (ctypes.c_int * 5)()
+    rc = _lib().attn_fwd_info(dh, _FWD_KERNELS[(name, mode)], ctypes.addressof(info))
+    if rc != 0:
+        raise RuntimeError(f"attn_fwd_info failed for {name} (code {rc})")
+    return dict(zip(("blocks_per_sm", "registers", "local_bytes", "shared_bytes",
+                     "tile_rows"), info))
 
 
 def _check_bwd(q, k, v, do, lse, dvec, n_views, n_kpts):

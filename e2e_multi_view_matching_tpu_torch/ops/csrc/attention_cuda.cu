@@ -20,31 +20,64 @@
 // TFLOP/s of FP32 (no tensor cores: TF32 is not f32). Device-memory traffic is
 // small: each block streams its key (or query) range once from L2.
 //
-// Design. The TPU kernels keep one head's whole K and V (or one view's keys,
-// for dk/dv) resident in VMEM and compute a (tile, keys) block at once; here
-// the streamed operand goes through shared memory in tiles of 32 rows, and a
-// loop inside the block takes the place of the TPU's sequential grid axis.
-//   Forward: one thread owns one query row; q and the accumulator live in
-//   registers, every key row is a warp-wide float4 broadcast from shared
-//   memory, and the softmax is online (running max m from -1e9, running sum l,
-//   rescaled accumulator), as in the TPU cross kernel. Output acc / (l + 1e-9).
-//   Backward: two threads own one row and each holds half of the head dims in
-//   the interleaved float4 order 2x + half, so the pair's two shared-memory
-//   reads fall in different banks; the two halves of each dot product meet in
-//   one __shfl_xor_sync (both threads then hold the same bits). p = exp(s -
-//   lse) is rebuilt from the stashed LSE with no rescaling. dq keeps the BC
-//   key rows of its dot products in registers for the update (254 registers,
-//   no spills at DH = 64). dk/dv holds twice as much per thread (k, v, dk, dv:
-//   128 floats at DH = 64), and keeping its rows too took 255 registers and
-//   1.3 KB of spills per thread (15.5 ms at the training shape); so its update
-//   rereads the rows from shared memory with volatile loads, which ptxas may
-//   not merge with the earlier ones. In dk/dv each block owns its key rows and
-//   sums over every query row of the other views itself: no atomics, the same
-//   bits on every run.
-//   Cross kernels tile each view separately: ceil(n_kpts / rows) tiles per
-//   view, the last one ragged, so no tile straddles two views and any n_kpts
-//   works (K = 400: 7 tiles of 64, the last with 16 live rows). Rows past the
-//   view's end load zeros, take weight exactly 0, and store nothing.
+// Forward design (attn_fwd, cross_attn_fwd, cross_attn_fwd_lse: one body,
+// fwd_tile). What bounds it is FFMA issue. Each FFMA needs both operands in
+// registers; a kernel that broadcasts one shared-memory float4 per 4 FMAs (one
+// thread per query row) runs at the shared-memory issue limit instead. So the
+// block is register-tiled like a GEMM: 4 warps own 80 query rows, each thread
+// a 5-row x 8-key micro-tile of S = QK^T (keys tx + 8i of each 64-key tile,
+// tx = lane % 8) and a 5-row x DH/8-column tile of O. Per float4 step over the
+// head dimension a thread loads 5 q and 8 k float4s for 160 FMAs (12.3 FMAs per
+// LDS.128). P goes through a per-warp block of shared memory, and O += PV
+// reads 2 P words and DH/32 V float4s per key for 5 * DH/8 FMAs.
+//   The online softmax runs once per 64-key tile, in base 2: exp2f with
+// log2(e) folded into the scale (the LSE stays within 1e-5 of the plain
+// version). Row maxima meet across the 8 lanes of a row in three
+// __shfl_xor_sync, O is rescaled once per tile, and each thread keeps its own
+// part of the row sum l until the end (the lanes of a row share m, so the
+// parts rescale alike). Constants as in the TPU kernels, carried to base 2: m
+// starts at -1e9 and masked scores are -1e9 (both times log2(e)), keys past
+// the end of the range weigh exactly 0 (-INFINITY, tested on the last tile
+// only), O = acc / (l + 1e-9), LSE = m ln(2) + logf(l + 1e-9). exp2f and logf
+// are the accurate library functions (no --use_fast_math). No atomics: the
+// same bits on every run.
+//   Registers: 168 at DH = 64, no spills. Three blocks of 4 warps put 3 warps
+// on each SM sub-partition, whose 16K registers allow 170 each (5 warps of
+// 4-row tiles would put 4 there and allow 128, which spilled).
+//   Shared memory: Q in groups of 5 rows (+8 floats per group, so the 4 groups
+// a warp reads at once fall in different banks), K rows padded by 4 floats (8
+// consecutive keys in 8 bank groups), V unpadded (a warp reads one row), P
+// 4 x 5 KB: 73.5 KB at DH = 64, dynamic, 3 blocks (12 warps) per SM. Copies
+// are cp.async (16 B, zero-filled past the end; each thread one 16-byte
+// column of every RPP-th row) into one K and one V buffer, with two barriers
+// per tile: V(t) lands while QK^T(t) runs and K(t+1) while PV(t) runs.
+//   Tiles: 80 = 400 / 5 query rows, so K = 400 wastes no row and K = 1024 16
+// of 1040. Cross kernels keep every query tile inside one view and walk the
+// other views' keys as one virtual range of (V-1)*K keys with the own view
+// cut out (1600 keys = 25 full tiles at K = 400). In attn_fwd's self and
+// cross modes each thread computes its 5 rows' views once and its 8 keys'
+// views once per tile. Warps whose rows all lie past the end skip the
+// arithmetic and keep only the copies and barriers.
+//
+// Backward design. The TPU kernels keep one head's whole K and V (or one
+// view's keys, for dk/dv) resident in VMEM and compute a (tile, keys) block at
+// once; here the streamed operand goes through shared memory in tiles of 32
+// rows, and a loop inside the block takes the place of the TPU's sequential
+// grid axis. Two threads own one row and each holds half of the head dims in
+// the interleaved float4 order 2x + half, so the pair's two shared-memory
+// reads fall in different banks; the two halves of each dot product meet in
+// one __shfl_xor_sync (both threads then hold the same bits). p = exp(s -
+// lse) is rebuilt from the stashed LSE with no rescaling. dq keeps the BC key
+// rows of its dot products in registers for the update (254 registers, no
+// spills at DH = 64). dk/dv holds twice as much per thread (k, v, dk, dv: 128
+// floats at DH = 64), and keeping its rows too took 255 registers and 1.3 KB
+// of spills per thread (15.5 ms at the training shape); so its update rereads
+// the rows from shared memory with volatile loads, which ptxas may not merge
+// with the earlier ones. In dk/dv each block owns its key rows and sums over
+// every query row of the other views itself: no atomics, the same bits on
+// every run. The backward tiles each view separately: ceil(n_kpts / 64) tiles
+// per view, the last one ragged; rows past the view's end load zeros, take
+// weight exactly 0, and store nothing.
 //
 // Plain versions: ops/attention.py::multi_head_attention with the same mask,
 // and ops/attention_cuda.py::cross_attn_fwd_lse_plain / cross_attn_bwd_plain.
@@ -54,179 +87,298 @@
 
 namespace {
 
-constexpr int BQ = 64;   // forward: query rows per block, one thread per row
-constexpr int BK = 32;   // forward: keys per shared-memory tile
-constexpr int CH = 16;   // forward: keys per online-softmax step (register array)
+constexpr int FW = 4;            // forward: warps per block
+constexpr int FT = 32 * FW;      // forward: threads per block
+constexpr int TM = 5;            // forward: query rows per thread (P's layout assumes 5)
+constexpr int TN = 8;            // forward: keys per thread and tile
+constexpr int RW = 4 * TM;       // forward: query rows per warp
+constexpr int BQ = RW * FW;      // forward: query rows per block (80)
+constexpr int BK = 8 * TN;       // forward: keys per tile (64)
+constexpr int FWD_BLOCKS = 3;    // forward: blocks per SM (shared memory at DH = 64)
+constexpr int CUNROLL = 4;       // forward: head-dim float4 steps per QK^T loop pass
 constexpr int BR = 64;   // backward: owned rows per block, two threads per row
 constexpr int BT = 32;   // backward: streamed rows per shared-memory tile
 constexpr int BC = 4;    // backward: streamed rows per inner step
 constexpr float kNegInf = -1e9f;
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 enum Mode { kFull = 0, kSelf = 1, kCross = 2 };
 
-// Online-softmax pass over keys [key_lo, key_hi) of one (batch*head) slice.
-template <int DH, int MODE>
-__device__ __forceinline__ void attend_keys(
-    const float* __restrict__ kb, const float* __restrict__ vb, int key_lo,
-    int key_hi, int qrow, int n_kpts, float scale, const float (&q)[DH],
-    float (&acc)[DH], float& m, float& l, float* __restrict__ ks,
-    float* __restrict__ vs) {
-  for (int t0 = key_lo; t0 < key_hi; t0 += BK) {
-    const int nk = min(BK, key_hi - t0);
-    __syncthreads();  // the previous tile has been consumed
-    constexpr int n4 = BK * DH / 4;
-    const float4* k4 = reinterpret_cast<const float4*>(kb + (size_t)t0 * DH);
-    const float4* v4 = reinterpret_cast<const float4*>(vb + (size_t)t0 * DH);
-    for (int i = threadIdx.x; i < n4; i += BQ) {
-      const int row = (i * 4) / DH;
-      float4 kk = make_float4(0.f, 0.f, 0.f, 0.f);
-      float4 vv = kk;
-      if (row < nk) {
-        kk = k4[i];
-        vv = v4[i];
-      }
-      reinterpret_cast<float4*>(ks)[i] = kk;
-      reinterpret_cast<float4*>(vs)[i] = vv;
-    }
-    __syncthreads();
+// Shared-memory layout of the forward, in floats.
+template <int DH>
+struct FwdSmem {
+  static constexpr int QG = TM * DH + 8;  // one thread's group of TM query rows
+  static constexpr int KS = DH + 4;       // one key row
+  static constexpr int PW = BK * RW;      // one warp's P block, [key][RW rows]:
+                                          // rows 0-3 of lane group ty at 4 ty, row 4 at 16 + ty
+  static constexpr int k_off = (BQ / TM) * QG;
+  static constexpr int v_off = k_off + BK * KS;
+  static constexpr int p_off = v_off + BK * DH;
+  static constexpr size_t bytes = (p_off + FW * PW) * sizeof(float);
+};
 
+// 16-byte global -> shared copy, zero-filled (nothing read) when !valid.
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
+               "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until this thread's copies have landed.
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Tile row i <- key row x0 + i of the virtual key range [0, nkeys), whose key
+// x + gap_len lies past the cut-out range when x >= gap; zeros past nkeys.
+// Each thread copies one 16-byte column c of every RPP-th row.
+template <int DH>
+__device__ __forceinline__ void copy_keys(float* dst, int ld, const float* __restrict__ src,
+                                          int x0, int nkeys, int gap, int gap_len) {
+  constexpr int C = DH / 4, RPP = FT / C;
+  static_assert(FT % C == 0 && BK % RPP == 0, "whole rows per pass");
+  const int c = threadIdx.x % C, i0 = threadIdx.x / C;
+  dst += i0 * ld + 4 * c;
+  src += 4 * c;
+#pragma unroll
+  for (int j = 0; j < BK / RPP; ++j) {
+    const int x = x0 + i0 + j * RPP;
+    const bool valid = x < nkeys;
+    const int key = valid ? x + (x >= gap ? gap_len : 0) : 0;
+    cp_async16(dst + j * RPP * ld, src + (size_t)key * DH, valid);
+  }
+}
+
+// One block: query rows row0 .. row0 + n_live - 1 of one (batch*head) slice
+// (q, k, v, o and lse already offset to it) against the keys of the virtual
+// range [0, nkeys) (see copy_keys), under the mask MODE over the actual key
+// index (attn_fwd's modes; the cross kernels pass kFull and cut their own view
+// out of the range instead).
+template <int DH, int MODE, bool LSE>
+__device__ __forceinline__ void fwd_tile(
+    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+    float* __restrict__ o, float* __restrict__ lse, int row0, int n_live, int nkeys,
+    int gap, int gap_len, int n_kpts, float scale) {
+  using L = FwdSmem<DH>;
+  constexpr int C = DH / 4;    // float4s per row
+  constexpr int CPT = DH / 8;  // output columns per thread
+  extern __shared__ __align__(16) float smem[];
+  float* qs = smem;
+  float* ks = smem + L::k_off;
+  float* vs = smem + L::v_off;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int tx = lane & 7, ty = lane >> 3;
+  const int rl = warp * RW + ty * TM;    // this thread's first row in the tile
+  const bool live = warp * RW < n_live;  // warp-uniform
+  float* pw = smem + L::p_off + warp * L::PW;
+
+  for (int e = threadIdx.x; e < BQ * C; e += FT) {
+    const int i = e / C, c = e % C;
+    const bool valid = i < n_live;
+    cp_async16(qs + (i / TM) * L::QG + (i % TM) * DH + 4 * c,
+               q + (size_t)(row0 + (valid ? i : 0)) * DH + 4 * c, valid);
+  }
+  copy_keys<DH>(ks, L::KS, k, 0, nkeys, gap, gap_len);
+  cp_async_commit();
+
+  int rview[TM];
+#pragma unroll
+  for (int r = 0; r < TM; ++r) rview[r] = MODE == kFull ? 0 : (row0 + rl + r) / n_kpts;
+  float acc[TM][CPT], m[TM], l[TM];
+#pragma unroll
+  for (int r = 0; r < TM; ++r) {
+    m[r] = kNegInf * kLog2e;
+    l[r] = 0.f;
+#pragma unroll
+    for (int c = 0; c < CPT; ++c) acc[r][c] = 0.f;
+  }
+  const float* qrow = qs + (rl / TM) * L::QG;  // row r at + r * DH
+  const float scale2 = scale * kLog2e;         // scores in base 2
+  const float* krow = ks + tx * L::KS;         // key tx + 8i at + 8i * KS
+  const int n_tiles = (nkeys + BK - 1) / BK;
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int x0 = t * BK;
+    cp_async_wait_all();  // Q and K(t) have landed
+    __syncthreads();      // ... for every thread; and every warp is done with V(t-1)
+    copy_keys<DH>(vs, DH, v, x0, nkeys, gap, gap_len);  // lands during QK^T(t)
+    cp_async_commit();
+    if (live) {
+      float s[TM][TN];
+#pragma unroll
+      for (int r = 0; r < TM; ++r)
+#pragma unroll
+        for (int i = 0; i < TN; ++i) s[r][i] = 0.f;
+#pragma unroll CUNROLL
+      for (int c = 0; c < C; ++c) {
+        float4 qa[TM];
+#pragma unroll
+        for (int r = 0; r < TM; ++r)
+          qa[r] = *reinterpret_cast<const float4*>(qrow + r * DH + 4 * c);
+#pragma unroll
+        for (int i = 0; i < TN; ++i) {
+          const float4 kk = *reinterpret_cast<const float4*>(krow + i * 8 * L::KS + 4 * c);
+#pragma unroll
+          for (int r = 0; r < TM; ++r) {
+            s[r][i] = fmaf(qa[r].x, kk.x, s[r][i]);
+            s[r][i] = fmaf(qa[r].y, kk.y, s[r][i]);
+            s[r][i] = fmaf(qa[r].z, kk.z, s[r][i]);
+            s[r][i] = fmaf(qa[r].w, kk.w, s[r][i]);
+          }
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < TN; ++i) {
+        const int x = x0 + tx + 8 * i;
+        const int kview = MODE == kFull ? 0 : x / n_kpts;
+#pragma unroll
+        for (int r = 0; r < TM; ++r) {
+          s[r][i] *= scale2;
+          if (MODE != kFull && (MODE == kSelf) != (rview[r] == kview)) s[r][i] = kNegInf * kLog2e;
+        }
+      }
+      if (x0 + BK > nkeys) {  // the last tile: keys past the range weigh exactly 0
+#pragma unroll
+        for (int i = 0; i < TN; ++i)
+#pragma unroll
+          for (int r = 0; r < TM; ++r)
+            if (x0 + tx + 8 * i >= nkeys) s[r][i] = -INFINITY;
+      }
+#pragma unroll
+      for (int r = 0; r < TM; ++r) {
+        float mx = s[r][0];
+#pragma unroll
+        for (int i = 1; i < TN; ++i) mx = fmaxf(mx, s[r][i]);
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 4));
+        const float m_new = fmaxf(m[r], mx);
+        const float alpha = exp2f(m[r] - m_new);
+        m[r] = m_new;
+        float ps = 0.f;
+#pragma unroll
+        for (int i = 0; i < TN; ++i) {
+          s[r][i] = exp2f(s[r][i] - m_new);
+          ps += s[r][i];
+        }
+        l[r] = l[r] * alpha + ps;
+#pragma unroll
+        for (int c = 0; c < CPT; ++c) acc[r][c] *= alpha;
+      }
+#pragma unroll
+      for (int i = 0; i < TN; ++i) {
+        float* pk = pw + (tx + 8 * i) * RW;
+        *reinterpret_cast<float4*>(pk + ty * 4) = make_float4(s[0][i], s[1][i], s[2][i], s[3][i]);
+        pk[16 + ty] = s[4][i];
+      }
+    }
+    cp_async_wait_all();  // V(t) has landed
+    __syncthreads();      // ... for every thread; and every warp is done with K(t)
+    if (t + 1 < n_tiles) {  // lands during PV(t)
+      copy_keys<DH>(ks, L::KS, k, x0 + BK, nkeys, gap, gap_len);
+      cp_async_commit();
+    }
+    if (live) {
+      // P and V are zero past the end of the range: round the keys up to 8
+      const int nk8 = (min(BK, nkeys - x0) + 7) & ~7;
 #pragma unroll 1
-    for (int c0 = 0; c0 < nk; c0 += CH) {
-      float s[CH];
+      for (int j0 = 0; j0 < nk8; j0 += 8) {
 #pragma unroll
-      for (int j = 0; j < CH; ++j) {
-        const float4* kr = reinterpret_cast<const float4*>(ks + (c0 + j) * DH);
-        float d = 0.f;
+        for (int jj = 0; jj < 8; ++jj) {
+          const int j = j0 + jj;
+          const float4 p = *reinterpret_cast<const float4*>(pw + j * RW + ty * 4);
+          const float pr[TM] = {p.x, p.y, p.z, p.w, pw[j * RW + 16 + ty]};
+          const float* vrow = vs + j * DH;
+          if constexpr (CPT >= 4) {
 #pragma unroll
-        for (int x = 0; x < DH / 4; ++x) {
-          const float4 kk = kr[x];
-          d = fmaf(q[4 * x + 0], kk.x, d);
-          d = fmaf(q[4 * x + 1], kk.y, d);
-          d = fmaf(q[4 * x + 2], kk.z, d);
-          d = fmaf(q[4 * x + 3], kk.w, d);
-        }
-        d *= scale;
-        const int key = t0 + c0 + j;
-        if (MODE != kFull) {
-          const bool same = (qrow / n_kpts) == (key / n_kpts);
-          const bool allow = (MODE == kSelf) ? same : !same;
-          if (!allow) d = kNegInf;
-        }
-        // past the ragged end of the key range: weight exactly 0
-        if (c0 + j >= nk) d = -INFINITY;
-        s[j] = d;
-      }
-      float cmax = s[0];
+            for (int h = 0; h < CPT / 4; ++h) {
+              const float4 vv = *reinterpret_cast<const float4*>(vrow + 32 * h + 4 * tx);
 #pragma unroll
-      for (int j = 1; j < CH; ++j) cmax = fmaxf(cmax, s[j]);
-      const float m_new = fmaxf(m, cmax);
-      const float alpha = expf(m - m_new);
-      float psum = 0.f;
+              for (int r = 0; r < TM; ++r) {
+                acc[r][4 * h + 0] = fmaf(pr[r], vv.x, acc[r][4 * h + 0]);
+                acc[r][4 * h + 1] = fmaf(pr[r], vv.y, acc[r][4 * h + 1]);
+                acc[r][4 * h + 2] = fmaf(pr[r], vv.z, acc[r][4 * h + 2]);
+                acc[r][4 * h + 3] = fmaf(pr[r], vv.w, acc[r][4 * h + 3]);
+              }
+            }
+          } else {
+            const float2 vv = *reinterpret_cast<const float2*>(vrow + 2 * tx);
 #pragma unroll
-      for (int j = 0; j < CH; ++j) {
-        s[j] = expf(s[j] - m_new);
-        psum += s[j];
-      }
-      l = l * alpha + psum;
-#pragma unroll
-      for (int x = 0; x < DH; ++x) acc[x] *= alpha;
-#pragma unroll
-      for (int j = 0; j < CH; ++j) {
-        const float4* vr = reinterpret_cast<const float4*>(vs + (c0 + j) * DH);
-        const float p = s[j];
-#pragma unroll
-        for (int x = 0; x < DH / 4; ++x) {
-          const float4 vv = vr[x];
-          acc[4 * x + 0] = fmaf(p, vv.x, acc[4 * x + 0]);
-          acc[4 * x + 1] = fmaf(p, vv.y, acc[4 * x + 1]);
-          acc[4 * x + 2] = fmaf(p, vv.z, acc[4 * x + 2]);
-          acc[4 * x + 3] = fmaf(p, vv.w, acc[4 * x + 3]);
+            for (int r = 0; r < TM; ++r) {
+              acc[r][0] = fmaf(pr[r], vv.x, acc[r][0]);
+              acc[r][1] = fmaf(pr[r], vv.y, acc[r][1]);
+            }
+          }
         }
       }
-      m = m_new;
     }
   }
-}
 
-template <int DH>
-__device__ __forceinline__ void load_row(const float* __restrict__ src,
-                                         bool valid, float (&r)[DH]) {
-  const float4* s4 = reinterpret_cast<const float4*>(src);
+  if (!live) return;
 #pragma unroll
-  for (int x = 0; x < DH / 4; ++x) {
-    const float4 t = valid ? s4[x] : make_float4(0.f, 0.f, 0.f, 0.f);
-    r[4 * x + 0] = t.x;
-    r[4 * x + 1] = t.y;
-    r[4 * x + 2] = t.z;
-    r[4 * x + 3] = t.w;
+  for (int r = 0; r < TM; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 4);
   }
-}
-
-template <int DH>
-__device__ __forceinline__ void store_row(float* __restrict__ dst,
-                                          const float (&acc)[DH], float l) {
-  const float inv = 1.f / (l + 1e-9f);
-  float4* d4 = reinterpret_cast<float4*>(dst);
 #pragma unroll
-  for (int x = 0; x < DH / 4; ++x)
-    d4[x] = make_float4(acc[4 * x + 0] * inv, acc[4 * x + 1] * inv,
-                        acc[4 * x + 2] * inv, acc[4 * x + 3] * inv);
+  for (int r = 0; r < TM; ++r) {
+    const int row = rl + r;
+    if (row >= n_live) continue;
+    const float inv = 1.f / (l[r] + 1e-9f);
+    float* orow = o + (size_t)(row0 + row) * DH;
+    if constexpr (CPT >= 4) {
+#pragma unroll
+      for (int h = 0; h < CPT / 4; ++h)
+        *reinterpret_cast<float4*>(orow + 32 * h + 4 * tx) =
+            make_float4(acc[r][4 * h + 0] * inv, acc[r][4 * h + 1] * inv,
+                        acc[r][4 * h + 2] * inv, acc[r][4 * h + 3] * inv);
+    } else {
+      *reinterpret_cast<float2*>(orow + 2 * tx) =
+          make_float2(acc[r][0] * inv, acc[r][1] * inv);
+    }
+    if (LSE && tx == 0) lse[row0 + row] = m[r] * kLn2 + logf(l[r] + 1e-9f);
+  }
 }
 
 // grid (ceil(S / BQ), BH): every query attends all S keys under the mask.
 template <int DH, int MODE>
-__global__ void __launch_bounds__(BQ)
+__global__ void __launch_bounds__(FT, FWD_BLOCKS)
 attn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                 const float* __restrict__ v, float* __restrict__ o, int S,
                 int n_kpts, float scale) {
-  __shared__ __align__(16) float ks[BK * DH];
-  __shared__ __align__(16) float vs[BK * DH];
   const size_t base = (size_t)blockIdx.y * S * DH;
-  const int qrow = blockIdx.x * BQ + threadIdx.x;
-  const bool valid = qrow < S;
-  float qr[DH], acc[DH];
-  load_row<DH>(q + base + (size_t)qrow * DH, valid, qr);
-#pragma unroll
-  for (int x = 0; x < DH; ++x) acc[x] = 0.f;
-  float m = kNegInf, l = 0.f;
-  attend_keys<DH, MODE>(k + base, v + base, 0, S, qrow, n_kpts, scale, qr,
-                        acc, m, l, ks, vs);
-  if (valid) store_row<DH>(o + base + (size_t)qrow * DH, acc, l);
+  const int row0 = blockIdx.x * BQ;
+  fwd_tile<DH, MODE, false>(q + base, k + base, v + base, o + base, nullptr, row0,
+                            min(BQ, S - row0), S, S, 0, n_kpts, scale);
 }
 
 // grid (n_views * tiles, BH) with tiles = ceil(n_kpts / BQ) query tiles per
-// view. The in-block loop over w replaces the TPU kernel's sequential grid
-// axis; key view w + (w >= qv) skips the query's own view. With LSE, also
-// store m + log(l + 1e-9) per row (the TPU kernel's 128-lane broadcast of it
-// is a Mosaic layout rule).
+// view, the last one ragged. The keys are the (V-1)*K of the other views: the
+// virtual key x is key x, or x + K from the query's own view qv on. With LSE,
+// also store m + log(l + 1e-9) per row (the TPU kernel's 128-lane broadcast of
+// it is a Mosaic layout rule).
 template <int DH, bool LSE>
-__global__ void __launch_bounds__(BQ)
+__global__ void __launch_bounds__(FT, FWD_BLOCKS)
 cross_attn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                       const float* __restrict__ v, float* __restrict__ o,
                       float* __restrict__ lse, int S, int n_views, int n_kpts,
                       int tiles, float scale) {
-  __shared__ __align__(16) float ks[BK * DH];
-  __shared__ __align__(16) float vs[BK * DH];
   const size_t base = (size_t)blockIdx.y * S * DH;
   const int qv = blockIdx.x / tiles;
-  const int r = (blockIdx.x % tiles) * BQ + threadIdx.x;  // row within the view
-  const bool valid = r < n_kpts;
-  const int qrow = qv * n_kpts + r;
-  float qr[DH], acc[DH];
-  load_row<DH>(q + base + (size_t)qrow * DH, valid, qr);
-#pragma unroll
-  for (int x = 0; x < DH; ++x) acc[x] = 0.f;
-  float m = kNegInf, l = 0.f;
-  for (int w = 0; w < n_views - 1; ++w) {
-    const int kv = w + (w >= qv ? 1 : 0);
-    attend_keys<DH, kFull>(k + base, v + base, kv * n_kpts, (kv + 1) * n_kpts,
-                           qrow, n_kpts, scale, qr, acc, m, l, ks, vs);
-  }
-  if (valid) {
-    store_row<DH>(o + base + (size_t)qrow * DH, acc, l);
-    if (LSE) lse[(size_t)blockIdx.y * S + qrow] = m + logf(l + 1e-9f);
-  }
+  const int r0 = (blockIdx.x % tiles) * BQ;  // first row within the view
+  fwd_tile<DH, kFull, LSE>(q + base, k + base, v + base, o + base,
+                           LSE ? lse + (size_t)blockIdx.y * S : nullptr,
+                           qv * n_kpts + r0, min(BQ, n_kpts - r0),
+                           (n_views - 1) * n_kpts, qv * n_kpts, n_kpts, n_kpts, scale);
 }
+
 
 // ---- backward: two threads per owned row, half of the head dims each ----
 
@@ -451,17 +603,34 @@ cross_attn_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__
   }
 }
 
+// Above 48 KB a block's shared memory is dynamic only; the carveout asks for
+// the SM's whole 228 KB, so that FWD_BLOCKS blocks fit.
+template <typename F>
+void prepare_fwd(F* kernel, size_t bytes) {
+  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                       (int)cudaSharedmemCarveoutMaxShared);
+}
+
+template <int DH, int MODE>
+void launch_attn_mode(const float* q, const float* k, const float* v, float* o,
+                      int BH, int S, int n_kpts, float scale, cudaStream_t st) {
+  constexpr size_t bytes = FwdSmem<DH>::bytes;
+  prepare_fwd(attn_fwd_kernel<DH, MODE>, bytes);
+  const dim3 grid((S + BQ - 1) / BQ, BH);
+  attn_fwd_kernel<DH, MODE><<<grid, FT, bytes, st>>>(q, k, v, o, S, n_kpts, scale);
+}
+
 template <int DH>
 void launch_attn(const float* q, const float* k, const float* v, float* o,
                  int BH, int S, int n_kpts, int mode, float scale,
                  cudaStream_t st) {
-  const dim3 grid((S + BQ - 1) / BQ, BH);
   if (mode == kFull)
-    attn_fwd_kernel<DH, kFull><<<grid, BQ, 0, st>>>(q, k, v, o, S, n_kpts, scale);
+    launch_attn_mode<DH, kFull>(q, k, v, o, BH, S, n_kpts, scale, st);
   else if (mode == kSelf)
-    attn_fwd_kernel<DH, kSelf><<<grid, BQ, 0, st>>>(q, k, v, o, S, n_kpts, scale);
+    launch_attn_mode<DH, kSelf>(q, k, v, o, BH, S, n_kpts, scale, st);
   else
-    attn_fwd_kernel<DH, kCross><<<grid, BQ, 0, st>>>(q, k, v, o, S, n_kpts, scale);
+    launch_attn_mode<DH, kCross>(q, k, v, o, BH, S, n_kpts, scale, st);
 }
 
 bool cross_shape_ok(int BH, int S, int n_views, int n_kpts) {
@@ -469,22 +638,28 @@ bool cross_shape_ok(int BH, int S, int n_views, int n_kpts) {
          S == n_views * n_kpts;
 }
 
+template <int DH, bool LSE>
+void launch_cross_dh(const float* q, const float* k, const float* v, float* o,
+                     float* lse, int BH, int S, int n_views, int n_kpts, float scale,
+                     cudaStream_t st) {
+  constexpr size_t bytes = FwdSmem<DH>::bytes;
+  prepare_fwd(cross_attn_fwd_kernel<DH, LSE>, bytes);
+  const int tiles = (n_kpts + BQ - 1) / BQ;
+  const dim3 grid(n_views * tiles, BH);
+  cross_attn_fwd_kernel<DH, LSE><<<grid, FT, bytes, st>>>(q, k, v, o, lse, S, n_views,
+                                                          n_kpts, tiles, scale);
+}
+
 int launch_cross_fwd(const float* q, const float* k, const float* v, float* o,
                      float* lse, int BH, int S, int dh, int n_views, int n_kpts,
                      float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (!cross_shape_ok(BH, S, n_views, n_kpts)) return -1;
-  const int tiles = (n_kpts + BQ - 1) / BQ;
-  const dim3 grid(n_views * tiles, BH);
-#define CROSS_FWD(D)                                                          \
-  if (lse)                                                                    \
-    cross_attn_fwd_kernel<D, true><<<grid, BQ, 0, st>>>(q, k, v, o, lse, S,   \
-                                                        n_views, n_kpts,      \
-                                                        tiles, scale);        \
-  else                                                                        \
-    cross_attn_fwd_kernel<D, false><<<grid, BQ, 0, st>>>(q, k, v, o, nullptr, \
-                                                         S, n_views, n_kpts,  \
-                                                         tiles, scale);
+#define CROSS_FWD(D)                                                                 \
+  if (lse)                                                                           \
+    launch_cross_dh<D, true>(q, k, v, o, lse, BH, S, n_views, n_kpts, scale, st);    \
+  else                                                                               \
+    launch_cross_dh<D, false>(q, k, v, o, nullptr, BH, S, n_views, n_kpts, scale, st);
   switch (dh) {
     case 16: CROSS_FWD(16) break;
     case 32: CROSS_FWD(32) break;
@@ -493,6 +668,38 @@ int launch_cross_fwd(const float* q, const float* k, const float* v, float* o,
   }
 #undef CROSS_FWD
   return (int)cudaGetLastError();
+}
+
+// {blocks per SM, registers, local (spill) bytes per thread, dynamic shared
+// bytes, query rows per block} of one forward kernel, as the runtime sees it.
+template <typename F>
+int fwd_info(F* kernel, size_t bytes, int* info) {
+  prepare_fwd(kernel, bytes);
+  cudaFuncAttributes a;
+  int blocks = 0;
+  if (cudaFuncGetAttributes(&a, kernel) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, FT, bytes) !=
+          cudaSuccess)
+    return (int)cudaGetLastError();
+  info[0] = blocks;
+  info[1] = a.numRegs;
+  info[2] = (int)a.localSizeBytes;
+  info[3] = (int)bytes;
+  info[4] = BQ;
+  return 0;
+}
+
+template <int DH>
+int fwd_info_dh(int which, int* info) {
+  constexpr size_t bytes = FwdSmem<DH>::bytes;
+  switch (which) {
+    case 0: return fwd_info(attn_fwd_kernel<DH, kFull>, bytes, info);
+    case 1: return fwd_info(attn_fwd_kernel<DH, kSelf>, bytes, info);
+    case 2: return fwd_info(attn_fwd_kernel<DH, kCross>, bytes, info);
+    case 3: return fwd_info(cross_attn_fwd_kernel<DH, false>, bytes, info);
+    case 4: return fwd_info(cross_attn_fwd_kernel<DH, true>, bytes, info);
+    default: return -1;
+  }
 }
 
 }  // namespace
@@ -560,6 +767,18 @@ int cross_attn_bwd_dkv(const float* q, const float* k, const float* v,
     default: return -1;
   }
   return (int)cudaGetLastError();
+}
+
+// Occupancy of a forward kernel: which = 0, 1, 2 for attn_fwd in modes full,
+// self, cross; 3 cross_attn_fwd; 4 cross_attn_fwd_lse. Fills info[5] (see
+// fwd_info) and returns 0, or -1 for an unsupported head width or kernel.
+int attn_fwd_info(int dh, int which, int* info) {
+  switch (dh) {
+    case 16: return fwd_info_dh<16>(which, info);
+    case 32: return fwd_info_dh<32>(which, info);
+    case 64: return fwd_info_dh<64>(which, info);
+    default: return -1;
+  }
 }
 
 }  // extern "C"
