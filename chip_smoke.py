@@ -178,14 +178,15 @@ def device_phase():
 
 
 def _occupancy(name, BH, S, n_views, n_kpts, dh, mode):
-    """Registers, blocks per SM and waves on this card of a forward attention
-    kernel at one shape, from the CUDA runtime. The grid: query tiles of each
-    view for the cross kernels, of all S rows for `attn_fwd`."""
+    """Registers, blocks per SM and waves on this card of an attention kernel
+    at one shape, from the CUDA runtime. The grid: row tiles of each view for
+    the cross kernels (query rows; key rows for dk/dv), of all S rows for
+    `attn_fwd`."""
     import torch
 
     from e2e_multi_view_matching_tpu_torch.ops import attention_cuda as ac
 
-    info = ac.fwd_kernel_info(name, dh, mode)
+    info = ac.kernel_info(name, dh, mode)
     if name == "attn_fwd":
         blocks = BH * math.ceil(S / info["tile_rows"])
     else:
@@ -194,6 +195,23 @@ def _occupancy(name, BH, S, n_views, n_kpts, dh, mode):
     return {"registers": info["registers"], "blocks_per_sm": info["blocks_per_sm"],
             "shared_bytes": info["shared_bytes"], "blocks": blocks,
             "waves": blocks / (info["blocks_per_sm"] * sms)}
+
+
+def _sm_clock_under(fn, reps):
+    """The SM clock and its maximum (MHz), read by nvidia-smi while `reps`
+    queued calls of `fn` keep the card busy."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(reps):
+        fn()
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60)
+    torch.cuda.synchronize()
+    sm, top = (float(x) for x in out.stdout.strip().splitlines()[0].split(","))
+    return {"sm_clock_mhz": sm, "max_sm_clock_mhz": top}
 
 
 def _attention_records(g):
@@ -340,7 +358,7 @@ def _cross_attn_train_records(g):
         check(bits, f"cross-attention training kernels at {(BH, S, dh)}: two runs differ")
         return (q, k, v, do, o, lse, dvec, scale), err
 
-    small_args, small_err = case(8, 3, 100, 64)  # 100 = 64 + 36: ragged per-view tiles
+    small_args, small_err = case(8, 3, 100, 64)  # 100 = 80 + 20: ragged per-view tiles
     BH, V, K, dh = 32, 5, 400, 64
     S = V * K
     args, err = case(BH, V, K, dh)
@@ -349,6 +367,10 @@ def _cross_attn_train_records(g):
     ms = {"fwd_lse": cuda_ms(lambda: ac.cross_attn_fwd_lse(q, k, v, V, K, scale), 5),
           "bwd_dq": cuda_ms(lambda: ac.cross_attn_bwd_dq(*bwd_args), 5),
           "bwd_dkv": cuda_ms(lambda: ac.cross_attn_bwd_dkv(*bwd_args), 5)}
+    # the clock that the bounds' 67 TFLOP/s assume (1,980 MHz) against the one
+    # the card holds under ~1.5 s of dk/dv launches
+    clock = _sm_clock_under(lambda: ac.cross_attn_bwd_dkv(*bwd_args), int(1500 / ms["bwd_dkv"]))
+    emit({"phase": "kernel", "sm_clock_under_cross_attn_bwd_dkv": clock})
     plain_fwd = cuda_ms(lambda: ac.cross_attn_fwd_lse_plain(q, k, v, V, K, scale), 3)
     plain_bwd = cuda_ms(lambda: ac.cross_attn_bwd_plain(*bwd_args), 3)
     # library yardstick: SDPA with the same boolean mask, forward, and its
@@ -379,11 +401,11 @@ def _cross_attn_train_records(g):
                "tol": CROSS_TRAIN_TOL, "errors": err[key], "errors_ragged_8x300x64":
                small_err[key], "bitwise_repeatable": True, "ms": ms[key],
                "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
-               "shape": [BH, S, dh]}
-        if key == "fwd_lse":
-            rec.update(_occupancy(name, BH, S, V, K, dh, "cross"))
-        else:
+               "shape": [BH, S, dh], **_occupancy(name, BH, S, V, K, dh, "cross")}
+        if key != "fwd_lse":
             rec["plain_and_library_cover"] = "dq, dk and dv together"
+        if key == "bwd_dkv":
+            rec.update(clock)
         records.append(rec)
     records[0]["lse_tol"] = CROSS_LSE_TOL
     records[0]["kernels_fwd_bwd_ms"] = sum(ms.values())

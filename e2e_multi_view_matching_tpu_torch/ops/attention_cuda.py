@@ -37,10 +37,11 @@ _SIGNATURES = {
     "cross_attn_fwd_lse": (_I, [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P]),
     "cross_attn_bwd_dq": (_I, [_P] * 7 + [_I] * 5 + [_F, _P]),
     "cross_attn_bwd_dkv": (_I, [_P] * 8 + [_I] * 5 + [_F, _P]),
-    "attn_fwd_info": (_I, [_I, _I, _P]),
+    "attn_kernel_info": (_I, [_I, _I, _P]),
 }
-_FWD_KERNELS = {("attn_fwd", "full"): 0, ("attn_fwd", "self"): 1, ("attn_fwd", "cross"): 2,
-                ("cross_attn_fwd", "cross"): 3, ("cross_attn_fwd_lse", "cross"): 4}
+_KERNELS = {("attn_fwd", "full"): 0, ("attn_fwd", "self"): 1, ("attn_fwd", "cross"): 2,
+            ("cross_attn_fwd", "cross"): 3, ("cross_attn_fwd_lse", "cross"): 4,
+            ("cross_attn_bwd_dq", "cross"): 5, ("cross_attn_bwd_dkv", "cross"): 6}
 
 # kernel launches since the last reset, one per wrapper call that launched
 launches = {"attn_fwd": 0, "cross_attn_fwd": 0, "cross_attn_fwd_lse": 0,
@@ -121,14 +122,14 @@ def cross_attn_fwd_lse(q, k, v, n_views, n_kpts, scale):
     return out, lse
 
 
-def fwd_kernel_info(name, dh, mode="cross"):
-    """Occupancy of a forward kernel on the current card, as the CUDA runtime
-    reports it: {blocks_per_sm, registers, local_bytes, shared_bytes,
-    tile_rows (query rows per block)}."""
+def kernel_info(name, dh, mode="cross"):
+    """Occupancy of an attention kernel on the current card, as the CUDA
+    runtime reports it: {blocks_per_sm, registers, local_bytes, shared_bytes,
+    tile_rows (rows a block owns: query rows, key rows for dk/dv)}."""
     info = (ctypes.c_int * 5)()
-    rc = _lib().attn_fwd_info(dh, _FWD_KERNELS[(name, mode)], ctypes.addressof(info))
+    rc = _lib().attn_kernel_info(dh, _KERNELS[(name, mode)], ctypes.addressof(info))
     if rc != 0:
-        raise RuntimeError(f"attn_fwd_info failed for {name} (code {rc})")
+        raise RuntimeError(f"attn_kernel_info failed for {name} (code {rc})")
     return dict(zip(("blocks_per_sm", "registers", "local_bytes", "shared_bytes",
                      "tile_rows"), info))
 

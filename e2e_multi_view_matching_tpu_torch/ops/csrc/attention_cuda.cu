@@ -15,11 +15,13 @@
 // already split; lse and dvec are (BH, S) float32.
 //
 // What bounds it on an H100: arithmetic. Per (query, key) pair the forward does
-// 2*DH FMAs (QK^T and PV) and one expf, the dq kernel 3*DH FMAs (QK^T, dO V^T,
-// dS K) and the dk/dv kernel 4*DH (QK^T, dO V^T, P^T dO, dS^T Q), against 67
+// 2*DH FMAs (QK^T and PV) and one exp2f, the dq kernel 3*DH FMAs (QK^T, dO V^T,
+// dS K) and the dk/dv kernel 4*DH (K Q^T, V dO^T, P^T dO, dS^T Q), against 67
 // TFLOP/s of FP32 (no tensor cores: TF32 is not f32). Device-memory traffic is
-// small: each block streams its key (or query) range once from L2.
-//
+// small: each block streams its key (or query) range once from L2. All five
+// kernels are register-tiled alike, so that FFMA issue, not the shared-memory
+// pipe, is what they wait on.
+
 // Forward design (attn_fwd, cross_attn_fwd, cross_attn_fwd_lse: one body,
 // fwd_tile). What bounds it is FFMA issue. Each FFMA needs both operands in
 // registers; a kernel that broadcasts one shared-memory float4 per 4 FMAs (one
@@ -59,26 +61,41 @@
 // views once per tile. Warps whose rows all lie past the end skip the
 // arithmetic and keep only the copies and barriers.
 //
-// Backward design. The TPU kernels keep one head's whole K and V (or one
-// view's keys, for dk/dv) resident in VMEM and compute a (tile, keys) block at
-// once; here the streamed operand goes through shared memory in tiles of 32
-// rows, and a loop inside the block takes the place of the TPU's sequential
-// grid axis. Two threads own one row and each holds half of the head dims in
-// the interleaved float4 order 2x + half, so the pair's two shared-memory
-// reads fall in different banks; the two halves of each dot product meet in
-// one __shfl_xor_sync (both threads then hold the same bits). p = exp(s -
-// lse) is rebuilt from the stashed LSE with no rescaling. dq keeps the BC key
-// rows of its dot products in registers for the update (254 registers, no
-// spills at DH = 64). dk/dv holds twice as much per thread (k, v, dk, dv: 128
-// floats at DH = 64), and keeping its rows too took 255 registers and 1.3 KB
-// of spills per thread (15.5 ms at the training shape); so its update rereads
-// the rows from shared memory with volatile loads, which ptxas may not merge
-// with the earlier ones. In dk/dv each block owns its key rows and sums over
-// every query row of the other views itself: no atomics, the same bits on
-// every run. The backward tiles each view separately: ceil(n_kpts / 64) tiles
-// per view, the last one ragged; rows past the view's end load zeros, take
-// weight exactly 0, and store nothing.
-//
+// Backward design (cross_attn_bwd_dq, cross_attn_bwd_dkv: two kernels, as in
+// the TPU package, each recomputing S and dP; each block owns its outputs, so
+// there are no atomics and every run gives the same bits). Both take the
+// forward's block: 4 warps own 80 rows of one view (K = 400 wastes no row),
+// each thread 5 owned rows x 8 streamed rows of a 64-row tile, and stream the
+// other views' rows through copy_keys' virtual range with the own view cut out.
+//   dq owns query rows; per tile of keys it forms dP = dO V^T and S = Q K^T as
+// two 5 x 8 micro-tiles, P = exp2f(S scale log2(e) - lse log2(e)) with
+// lse log2(e) formed once per row (no running maximum: the forward's LSE
+// already holds it), dS = P (dP - dvec) into the warp's block of shared memory
+// the way the forward passes P, and dQ += dS K as the forward's O += P V (dQ a
+// 5 x DH/8 tile per thread). K is one padded copy per tile, read as K^T by
+// the micro-tile and by rows in the update.
+//   dk/dv is its transpose: it owns key rows (K and V in the forward's Q
+// layout) and streams the other views' Q, dO, LSE and dvec. Per tile it forms
+// dP^T = V dO^T and S^T = K Q^T, P^T (query rows past the range weigh exactly
+// 0), dV += P^T dO, dS^T = P^T (dP^T - dvec) and dK += dS^T Q; P^T and then
+// dS^T go through the warp's block. One padded copy each of Q and dO serves
+// both of their reads.
+//   Copies: cp.async into one buffer per streamed operand. dq: V(t) lands
+// during S and dQ of tile t-1, K(t) during dP(t): two barriers per tile. dk/dv
+// uses Q and dO from its first product to its last, so it takes three: Q(t)
+// with its LSE and dvec lands during dP^T(t), dO(t+1) during dK(t).
+//   Registers: the two micro-tiles, their operands and the accumulators are
+// live at once: 5*8 + 5*8 + 5*8 + 24 = 144 floats in dq, 184 in dk/dv (two
+// accumulators). Both are built for 2 blocks (8 warps) per SM, which allows
+// 255 registers a thread; ptxas takes 254 for both at DH = 64, no spills.
+//   Shared memory at DH = 64: two owned groups 2 x 21.0 KB, two streamed
+// tiles 2 x 17.4 KB (64 rows of DH + 4 floats), the P/dS blocks 20.5 KB, the
+// LSE and dvec of a tile 0.5 KB: 97.8 KB, so 2 blocks per SM either way. At
+// (32, 2000, 64) that is 800 blocks, 3.03 waves on 132 SMs. 32-row tiles
+// (69.9 KB and <= 170 registers, 3 blocks per SM, 2.02 waves) cut the
+// micro-tiles' FMAs per shared load from 12.3 to 8.9 and double the barriers
+// per row; on an H100 they were no faster (level for dq, slower for dk/dv).
+
 // Plain versions: ops/attention.py::multi_head_attention with the same mask,
 // and ops/attention_cuda.py::cross_attn_fwd_lse_plain / cross_attn_bwd_plain.
 
@@ -96,9 +113,7 @@ constexpr int BQ = RW * FW;      // forward: query rows per block (80)
 constexpr int BK = 8 * TN;       // forward: keys per tile (64)
 constexpr int FWD_BLOCKS = 3;    // forward: blocks per SM (shared memory at DH = 64)
 constexpr int CUNROLL = 4;       // forward: head-dim float4 steps per QK^T loop pass
-constexpr int BR = 64;   // backward: owned rows per block, two threads per row
-constexpr int BT = 32;   // backward: streamed rows per shared-memory tile
-constexpr int BC = 4;    // backward: streamed rows per inner step
+constexpr int BWD_BLOCKS = 2;    // backward: blocks per SM (the forward's TM x TN tiles)
 constexpr float kNegInf = -1e9f;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
@@ -380,233 +395,344 @@ cross_attn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 
-// ---- backward: two threads per owned row, half of the head dims each ----
+// ---- backward: register-tiled like the forward ----
 
-// This thread's half of a row: float4 number 2x + half, x < DH / 8.
+// Shared-memory layout of the backward kernels, in floats: two owned groups of
+// BQ rows in the forward's Q layout (dq: Q, dO; dk/dv: K, V), two streamed
+// tiles of BK rows padded like the forward's K (dq: K, V; dk/dv: Q, dO), the
+// per-warp P/dS blocks, and the LSE and dvec of the streamed rows (dk/dv).
 template <int DH>
-__device__ __forceinline__ void load_half(const float* __restrict__ src, int half,
-                                          bool valid, float (&r)[DH / 2]) {
-  const float4* s4 = reinterpret_cast<const float4*>(src);
-#pragma unroll
-  for (int x = 0; x < DH / 8; ++x) {
-    const float4 t = valid ? s4[2 * x + half] : make_float4(0.f, 0.f, 0.f, 0.f);
-    r[4 * x + 0] = t.x;
-    r[4 * x + 1] = t.y;
-    r[4 * x + 2] = t.z;
-    r[4 * x + 3] = t.w;
+struct BwdSmem {
+  static constexpr int QG = TM * DH + 8;  // one thread's group of TM owned rows
+  static constexpr int RS = DH + 4;       // one streamed row
+  static constexpr int PW = BK * RW;      // one warp's block, laid out as the forward's P
+  static constexpr int b_off = (BQ / TM) * QG;
+  static constexpr int x_off = 2 * b_off;
+  static constexpr int y_off = x_off + BK * RS;
+  static constexpr int p_off = y_off + BK * RS;
+  static constexpr int l_off = p_off + FW * PW;  // LSE [BK], then dvec [BK]
+  static constexpr size_t bytes = (l_off + 2 * BK) * sizeof(float);
+};
+
+// 4-byte global -> shared copy, zero-filled (nothing read) when !valid.
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src),
+               "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+// Rows row0 .. row0 + n_live - 1 of src into BQ / TM groups of TM rows (the
+// forward's Q layout), zeros past n_live.
+template <int DH>
+__device__ __forceinline__ void copy_group(float* dst, const float* __restrict__ src, int row0,
+                                           int n_live) {
+  constexpr int C = DH / 4, QG = TM * DH + 8;
+  for (int e = threadIdx.x; e < BQ * C; e += FT) {
+    const int i = e / C, c = e % C;
+    const bool valid = i < n_live;
+    cp_async16(dst + (i / TM) * QG + (i % TM) * DH + 4 * c,
+               src + (size_t)(row0 + (valid ? i : 0)) * DH + 4 * c, valid);
   }
 }
 
+// dst[i] <- lse, dst[BK + i] <- dvec of row x0 + i of the virtual range (see
+// copy_keys); zeros past n.
+__device__ __forceinline__ void copy_row_scalars(float* dst, const float* __restrict__ lse,
+                                                 const float* __restrict__ dvec, int x0, int n,
+                                                 int gap, int gap_len) {
+  static_assert(2 * BK <= FT, "one scalar per thread");
+  if (threadIdx.x >= 2 * BK) return;
+  const int x = x0 + threadIdx.x % BK;
+  const bool valid = x < n;
+  const int row = valid ? x + (x >= gap ? gap_len : 0) : 0;
+  cp_async4(dst + threadIdx.x, (threadIdx.x < BK ? lse : dvec) + row, valid);
+}
+
+// s[r][i] = (owned row r of this thread's group) . (streamed row tx + 8i):
+// grow points at the group, trow at streamed row tx of the tile.
 template <int DH>
-__device__ __forceinline__ void store_half(float* __restrict__ dst, int half,
-                                           const float (&r)[DH / 2], float mul) {
-  float4* d4 = reinterpret_cast<float4*>(dst);
+__device__ __forceinline__ void micro_tile(float (&s)[TM][TN], const float* grow,
+                                           const float* trow) {
+  constexpr int C = DH / 4, RS = DH + 4;
 #pragma unroll
-  for (int x = 0; x < DH / 8; ++x)
-    d4[2 * x + half] = make_float4(r[4 * x + 0] * mul, r[4 * x + 1] * mul,
-                                   r[4 * x + 2] * mul, r[4 * x + 3] * mul);
-}
-
-// This thread's half of the dot product of `a` with shared-memory row `row`.
-template <int DH>
-__device__ __forceinline__ float dot_half(const float (&a)[DH / 2],
-                                          const float* __restrict__ row, int half) {
-  const float4* r4 = reinterpret_cast<const float4*>(row);
-  float d = 0.f;
+  for (int r = 0; r < TM; ++r)
 #pragma unroll
-  for (int x = 0; x < DH / 8; ++x) {
-    const float4 t = r4[2 * x + half];
-    d = fmaf(a[4 * x + 0], t.x, d);
-    d = fmaf(a[4 * x + 1], t.y, d);
-    d = fmaf(a[4 * x + 2], t.z, d);
-    d = fmaf(a[4 * x + 3], t.w, d);
-  }
-  return d;
-}
-
-// A float4 of shared memory read anew: a volatile load is never merged with
-// an earlier load of the same address, so the row need not stay in registers.
-__device__ __forceinline__ float4 lds_fresh(const float4* p) {
-  float4 r;
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ld.volatile.shared.v4.f32 {%0, %1, %2, %3}, [%4];"
-               : "=f"(r.x), "=f"(r.y), "=f"(r.z), "=f"(r.w)
-               : "r"(a));
-  return r;
-}
-
-// acc += c * (this thread's half of shared-memory row `row`); FRESH rereads
-// the row with volatile loads.
-template <int DH, bool FRESH>
-__device__ __forceinline__ void axpy_half(float (&acc)[DH / 2], float c,
-                                          const float* __restrict__ row, int half) {
-  const float4* r4 = reinterpret_cast<const float4*>(row);
+    for (int i = 0; i < TN; ++i) s[r][i] = 0.f;
+#pragma unroll CUNROLL
+  for (int c = 0; c < C; ++c) {
+    float4 a[TM];
 #pragma unroll
-  for (int x = 0; x < DH / 8; ++x) {
-    const float4 t = FRESH ? lds_fresh(r4 + 2 * x + half) : r4[2 * x + half];
-    acc[4 * x + 0] = fmaf(c, t.x, acc[4 * x + 0]);
-    acc[4 * x + 1] = fmaf(c, t.y, acc[4 * x + 1]);
-    acc[4 * x + 2] = fmaf(c, t.z, acc[4 * x + 2]);
-    acc[4 * x + 3] = fmaf(c, t.w, acc[4 * x + 3]);
-  }
-}
-
-// Rows [t0, t0 + n) of a and b into shared tiles of BT rows, zeros past n.
-template <int DH>
-__device__ __forceinline__ void load_tile_pair(const float* __restrict__ a,
-                                               const float* __restrict__ b, int t0,
-                                               int n, float* __restrict__ as,
-                                               float* __restrict__ bs) {
-  constexpr int n4 = BT * DH / 4;
-  const float4* a4 = reinterpret_cast<const float4*>(a + (size_t)t0 * DH);
-  const float4* b4 = reinterpret_cast<const float4*>(b + (size_t)t0 * DH);
-  for (int i = threadIdx.x; i < n4; i += 2 * BR) {
-    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    float4 y = x;
-    if ((i * 4) / DH < n) {
-      x = a4[i];
-      y = b4[i];
+    for (int r = 0; r < TM; ++r) a[r] = *reinterpret_cast<const float4*>(grow + r * DH + 4 * c);
+#pragma unroll
+    for (int i = 0; i < TN; ++i) {
+      const float4 b = *reinterpret_cast<const float4*>(trow + i * 8 * RS + 4 * c);
+#pragma unroll
+      for (int r = 0; r < TM; ++r) {
+        s[r][i] = fmaf(a[r].x, b.x, s[r][i]);
+        s[r][i] = fmaf(a[r].y, b.y, s[r][i]);
+        s[r][i] = fmaf(a[r].z, b.z, s[r][i]);
+        s[r][i] = fmaf(a[r].w, b.w, s[r][i]);
+      }
     }
-    reinterpret_cast<float4*>(as)[i] = x;
-    reinterpret_cast<float4*>(bs)[i] = y;
   }
 }
 
-// dq: grid (n_views * tiles, BH), tiles = ceil(n_kpts / BR). The owned query
-// rows stream the K and V tiles of the other views:
+// The warp's block pw [streamed row][RW owned rows] <- this thread's micro-tile.
+__device__ __forceinline__ void store_block(float* pw, const float (&s)[TM][TN], int tx, int ty) {
+#pragma unroll
+  for (int i = 0; i < TN; ++i) {
+    float* pk = pw + (tx + 8 * i) * RW;
+    *reinterpret_cast<float4*>(pk + ty * 4) = make_float4(s[0][i], s[1][i], s[2][i], s[3][i]);
+    pk[16 + ty] = s[4][i];
+  }
+}
+
+// acc[r][.] += sum over streamed rows j < n8 of pw[j][r] * (row j of `rows`,
+// this thread's columns 32h + 4tx ..); n8 is a multiple of 8, and rows past
+// the range are zero in both.
+template <int DH>
+__device__ __forceinline__ void update(float (&acc)[TM][DH / 8], const float* pw,
+                                       const float* rows, int n8, int tx, int ty) {
+  constexpr int CPT = DH / 8, RS = DH + 4;
+#pragma unroll 1
+  for (int j0 = 0; j0 < n8; j0 += 8) {
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj) {
+      const int j = j0 + jj;
+      const float4 p = *reinterpret_cast<const float4*>(pw + j * RW + ty * 4);
+      const float pr[TM] = {p.x, p.y, p.z, p.w, pw[j * RW + 16 + ty]};
+      const float* row = rows + j * RS;
+      if constexpr (CPT >= 4) {
+#pragma unroll
+        for (int h = 0; h < CPT / 4; ++h) {
+          const float4 b = *reinterpret_cast<const float4*>(row + 32 * h + 4 * tx);
+#pragma unroll
+          for (int r = 0; r < TM; ++r) {
+            acc[r][4 * h + 0] = fmaf(pr[r], b.x, acc[r][4 * h + 0]);
+            acc[r][4 * h + 1] = fmaf(pr[r], b.y, acc[r][4 * h + 1]);
+            acc[r][4 * h + 2] = fmaf(pr[r], b.z, acc[r][4 * h + 2]);
+            acc[r][4 * h + 3] = fmaf(pr[r], b.w, acc[r][4 * h + 3]);
+          }
+        }
+      } else {
+        const float2 b = *reinterpret_cast<const float2*>(row + 2 * tx);
+#pragma unroll
+        for (int r = 0; r < TM; ++r) {
+          acc[r][0] = fmaf(pr[r], b.x, acc[r][0]);
+          acc[r][1] = fmaf(pr[r], b.y, acc[r][1]);
+        }
+      }
+    }
+  }
+}
+
+// Owned rows rl .. rl + TM - 1 (of n_live) of acc * mul to dst, row0 the
+// block's first row.
+template <int DH>
+__device__ __forceinline__ void store_rows(float* __restrict__ dst, const float (&acc)[TM][DH / 8],
+                                           int row0, int rl, int n_live, int tx, float mul) {
+  constexpr int CPT = DH / 8;
+#pragma unroll
+  for (int r = 0; r < TM; ++r) {
+    if (rl + r >= n_live) continue;
+    float* row = dst + (size_t)(row0 + rl + r) * DH;
+    if constexpr (CPT >= 4) {
+#pragma unroll
+      for (int h = 0; h < CPT / 4; ++h)
+        *reinterpret_cast<float4*>(row + 32 * h + 4 * tx) =
+            make_float4(acc[r][4 * h + 0] * mul, acc[r][4 * h + 1] * mul,
+                        acc[r][4 * h + 2] * mul, acc[r][4 * h + 3] * mul);
+    } else {
+      *reinterpret_cast<float2*>(row + 2 * tx) = make_float2(acc[r][0] * mul, acc[r][1] * mul);
+    }
+  }
+}
+
+// dq: grid (n_views * tiles, BH), tiles = ceil(n_kpts / BQ). The block owns
+// query rows of view qv and streams the K and V tiles of the other views:
 //   dq_i = scale * sum_j p_ij (dp_ij - dvec_i) k_j, p = exp(s - lse_i), dp = dO_i . v_j
 template <int DH>
-__global__ void __launch_bounds__(2 * BR)
+__global__ void __launch_bounds__(FT, BWD_BLOCKS)
 cross_attn_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                          const float* __restrict__ v, const float* __restrict__ dout,
                          const float* __restrict__ lse, const float* __restrict__ dvec,
                          float* __restrict__ dq, int S, int n_views, int n_kpts,
                          int tiles, float scale) {
-  constexpr int HD = DH / 2;
-  __shared__ __align__(16) float ks[BT * DH];
-  __shared__ __align__(16) float vs[BT * DH];
-  const int half = threadIdx.x & 1;
+  using L = BwdSmem<DH>;
+  extern __shared__ __align__(16) float smem[];
+  float* qs = smem;
+  float* dos = smem + L::b_off;
+  float* ks = smem + L::x_off;
+  float* vs = smem + L::y_off;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int tx = lane & 7, ty = lane >> 3;
+  const int rl = warp * RW + ty * TM;  // this thread's first row in the block
+  float* pw = smem + L::p_off + warp * L::PW;
   const size_t base = (size_t)blockIdx.y * S * DH;
   const int qv = blockIdx.x / tiles;
-  const int r = (blockIdx.x % tiles) * BR + (threadIdx.x >> 1);
-  const bool valid = r < n_kpts;
-  const int qrow = qv * n_kpts + r;
-  float qh[HD], doh[HD], acc[HD];
-  load_half<DH>(q + base + (size_t)qrow * DH, half, valid, qh);
-  load_half<DH>(dout + base + (size_t)qrow * DH, half, valid, doh);
-  const float lse_i = valid ? lse[(size_t)blockIdx.y * S + qrow] : 0.f;
-  const float dvec_i = valid ? dvec[(size_t)blockIdx.y * S + qrow] : 0.f;
+  const int r0 = (blockIdx.x % tiles) * BQ;  // first row within the view
+  const int row0 = qv * n_kpts + r0, n_live = min(BQ, n_kpts - r0);
+  const bool live = warp * RW < n_live;  // warp-uniform
+  const int nkeys = (n_views - 1) * n_kpts, gap = qv * n_kpts;
+  k += base;
+  v += base;
+
+  copy_group<DH>(qs, q + base, row0, n_live);
+  copy_group<DH>(dos, dout + base, row0, n_live);
+  copy_keys<DH>(vs, L::RS, v, 0, nkeys, gap, n_kpts);
+  cp_async_commit();
+
+  float lse2[TM], dvr[TM], acc[TM][DH / 8];
 #pragma unroll
-  for (int x = 0; x < HD; ++x) acc[x] = 0.f;
-  for (int w = 0; w < n_views - 1; ++w) {
-    const int kv = w + (w >= qv ? 1 : 0);
-    const int hi = (kv + 1) * n_kpts;
-    for (int t0 = kv * n_kpts; t0 < hi; t0 += BT) {
-      const int nk = min(BT, hi - t0);
-      __syncthreads();  // the previous tile has been consumed
-      load_tile_pair<DH>(k + base, v + base, t0, nk, ks, vs);
-      __syncthreads();
-#pragma unroll 1
-      for (int c0 = 0; c0 < nk; c0 += BC) {
-        float s[BC], dp[BC];
+  for (int r = 0; r < TM; ++r) {
+    const bool in = rl + r < n_live;
+    const size_t i = (size_t)blockIdx.y * S + row0 + (in ? rl + r : 0);
+    lse2[r] = in ? lse[i] * kLog2e : 0.f;
+    dvr[r] = in ? dvec[i] : 0.f;
 #pragma unroll
-        for (int j = 0; j < BC; ++j) {
-          s[j] = dot_half<DH>(qh, ks + (c0 + j) * DH, half);
-          dp[j] = dot_half<DH>(doh, vs + (c0 + j) * DH, half);
-        }
+    for (int c = 0; c < DH / 8; ++c) acc[r][c] = 0.f;
+  }
+  const float scale2 = scale * kLog2e;
+  const float* qrow = qs + (rl / TM) * L::QG;
+  const float* dorow = dos + (rl / TM) * L::QG;
+  const int n_tiles = (nkeys + BK - 1) / BK;
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int x0 = t * BK;
+    cp_async_wait_all();  // Q, dO and V(t) have landed
+    __syncthreads();      // ... for every thread; and every warp is done with K(t-1)
+    copy_keys<DH>(ks, L::RS, k, x0, nkeys, gap, n_kpts);  // lands during dP(t)
+    cp_async_commit();
+    float dp[TM][TN];
+    if (live) micro_tile<DH>(dp, dorow, vs + tx * L::RS);
+    cp_async_wait_all();  // K(t) has landed
+    __syncthreads();      // ... for every thread; and every warp is done with V(t)
+    if (t + 1 < n_tiles) {  // lands during S and dQ of tile t
+      copy_keys<DH>(vs, L::RS, v, x0 + BK, nkeys, gap, n_kpts);
+      cp_async_commit();
+    }
+    if (!live) continue;
+    float s[TM][TN];
+    micro_tile<DH>(s, qrow, ks + tx * L::RS);
+    const bool last = x0 + BK > nkeys;
 #pragma unroll
-        for (int j = 0; j < BC; ++j) {
-          s[j] += __shfl_xor_sync(0xffffffffu, s[j], 1);
-          dp[j] += __shfl_xor_sync(0xffffffffu, dp[j], 1);
-        }
+    for (int i = 0; i < TN; ++i) {
+      const bool past = last && x0 + tx + 8 * i >= nkeys;  // weighs exactly 0
 #pragma unroll
-        for (int j = 0; j < BC; ++j) {
-          // a key past the ragged end weighs exactly 0
-          const float p = (c0 + j < nk) ? expf(s[j] * scale - lse_i) : 0.f;
-          axpy_half<DH, false>(acc, p * (dp[j] - dvec_i), ks + (c0 + j) * DH, half);
-        }
+      for (int r = 0; r < TM; ++r) {
+        const float p = past ? 0.f : exp2f(fmaf(s[r][i], scale2, -lse2[r]));
+        s[r][i] = p * (dp[r][i] - dvr[r]);
       }
     }
+    store_block(pw, s, tx, ty);
+    __syncwarp();
+    update<DH>(acc, pw, ks, (min(BK, nkeys - x0) + 7) & ~7, tx, ty);
   }
-  if (valid) store_half<DH>(dq + base + (size_t)qrow * DH, half, acc, scale);
+  if (live) store_rows<DH>(dq + base, acc, row0, rl, n_live, tx, scale);
 }
 
 // dk, dv: grid (n_views * tiles, BH). The block owns key rows of view kv and
-// streams q, dO, lse and dvec of every query row of the other views:
+// streams Q, dO, LSE and dvec of every query row of the other views:
 //   dv_j = sum_i p_ij dO_i,  dk_j = scale * sum_i p_ij (dp_ij - dvec_i) q_i
 template <int DH>
-__global__ void __launch_bounds__(2 * BR)
+__global__ void __launch_bounds__(FT, BWD_BLOCKS)
 cross_attn_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                           const float* __restrict__ v, const float* __restrict__ dout,
                           const float* __restrict__ lse, const float* __restrict__ dvec,
                           float* __restrict__ dk, float* __restrict__ dv, int S,
                           int n_views, int n_kpts, int tiles, float scale) {
-  constexpr int HD = DH / 2;
-  __shared__ __align__(16) float qs[BT * DH];
-  __shared__ __align__(16) float dos[BT * DH];
-  __shared__ float ls[BT];
-  __shared__ float dvs[BT];
-  const int half = threadIdx.x & 1;
+  using L = BwdSmem<DH>;
+  extern __shared__ __align__(16) float smem[];
+  float* ks = smem;
+  float* vs = smem + L::b_off;
+  float* qs = smem + L::x_off;
+  float* dos = smem + L::y_off;
+  float* ls = smem + L::l_off;  // LSE of the tile's query rows, then dvec
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int tx = lane & 7, ty = lane >> 3;
+  const int rl = warp * RW + ty * TM;
+  float* pw = smem + L::p_off + warp * L::PW;
   const size_t base = (size_t)blockIdx.y * S * DH;
-  const size_t rbase = (size_t)blockIdx.y * S;
   const int kv = blockIdx.x / tiles;
-  const int r = (blockIdx.x % tiles) * BR + (threadIdx.x >> 1);
-  const bool valid = r < n_kpts;
-  const int krow = kv * n_kpts + r;
-  float kh[HD], vh[HD], dkh[HD], dvh[HD];
-  load_half<DH>(k + base + (size_t)krow * DH, half, valid, kh);
-  load_half<DH>(v + base + (size_t)krow * DH, half, valid, vh);
+  const int r0 = (blockIdx.x % tiles) * BQ;
+  const int row0 = kv * n_kpts + r0, n_live = min(BQ, n_kpts - r0);
+  const bool live = warp * RW < n_live;
+  const int nq = (n_views - 1) * n_kpts, gap = kv * n_kpts;
+  q += base;
+  dout += base;
+  lse += (size_t)blockIdx.y * S;
+  dvec += (size_t)blockIdx.y * S;
+
+  copy_group<DH>(ks, k + base, row0, n_live);
+  copy_group<DH>(vs, v + base, row0, n_live);
+  copy_keys<DH>(dos, L::RS, dout, 0, nq, gap, n_kpts);
+  cp_async_commit();
+
+  float dka[TM][DH / 8], dva[TM][DH / 8];
 #pragma unroll
-  for (int x = 0; x < HD; ++x) {
-    dkh[x] = 0.f;
-    dvh[x] = 0.f;
-  }
-  for (int u = 0; u < n_views - 1; ++u) {
-    const int qv = u + (u >= kv ? 1 : 0);
-    const int hi = (qv + 1) * n_kpts;
-    for (int t0 = qv * n_kpts; t0 < hi; t0 += BT) {
-      const int nq = min(BT, hi - t0);
-      __syncthreads();  // the previous tile has been consumed
-      load_tile_pair<DH>(q + base, dout + base, t0, nq, qs, dos);
-      if (threadIdx.x < BT) {
-        const bool in = threadIdx.x < nq;
-        ls[threadIdx.x] = in ? lse[rbase + t0 + threadIdx.x] : 0.f;
-        dvs[threadIdx.x] = in ? dvec[rbase + t0 + threadIdx.x] : 0.f;
-      }
-      __syncthreads();
-#pragma unroll 1
-      for (int c0 = 0; c0 < nq; c0 += BC) {
-        float s[BC], dp[BC];
+  for (int r = 0; r < TM; ++r)
 #pragma unroll
-        for (int j = 0; j < BC; ++j) {
-          s[j] = dot_half<DH>(kh, qs + (c0 + j) * DH, half);
-          dp[j] = dot_half<DH>(vh, dos + (c0 + j) * DH, half);
-        }
-#pragma unroll
-        for (int j = 0; j < BC; ++j) {
-          s[j] += __shfl_xor_sync(0xffffffffu, s[j], 1);
-          dp[j] += __shfl_xor_sync(0xffffffffu, dp[j], 1);
-        }
-#pragma unroll
-        for (int j = 0; j < BC; ++j) {
-          // a query row past the ragged end weighs exactly 0
-          const float p = (c0 + j < nq) ? expf(s[j] * scale - ls[c0 + j]) : 0.f;
-          axpy_half<DH, true>(dvh, p, dos + (c0 + j) * DH, half);
-          axpy_half<DH, true>(dkh, p * (dp[j] - dvs[c0 + j]), qs + (c0 + j) * DH, half);
-        }
-      }
+    for (int c = 0; c < DH / 8; ++c) {
+      dka[r][c] = 0.f;
+      dva[r][c] = 0.f;
     }
+  const float scale2 = scale * kLog2e;
+  const float* krow = ks + (rl / TM) * L::QG;
+  const float* vrow = vs + (rl / TM) * L::QG;
+  const int n_tiles = (nq + BK - 1) / BK;
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int x0 = t * BK;
+    const int n8 = (min(BK, nq - x0) + 7) & ~7;
+    cp_async_wait_all();  // K, V and dO(t) have landed
+    __syncthreads();      // ... for every thread; and every warp is done with Q(t-1)
+    copy_keys<DH>(qs, L::RS, q, x0, nq, gap, n_kpts);  // land during dP^T(t)
+    copy_row_scalars(ls, lse, dvec, x0, nq, gap, n_kpts);
+    cp_async_commit();
+    float dp[TM][TN];
+    if (live) micro_tile<DH>(dp, vrow, dos + tx * L::RS);
+    cp_async_wait_all();  // Q(t), its LSE and dvec have landed
+    __syncthreads();      // ... for every thread
+    if (live) {
+      float s[TM][TN];
+      micro_tile<DH>(s, krow, qs + tx * L::RS);
+      const bool last = x0 + BK > nq;
+#pragma unroll
+      for (int i = 0; i < TN; ++i) {
+        const int j = tx + 8 * i;
+        const bool past = last && x0 + j >= nq;  // weighs exactly 0
+        const float l2 = ls[j] * kLog2e, dvj = ls[BK + j];
+#pragma unroll
+        for (int r = 0; r < TM; ++r) {
+          const float p = past ? 0.f : exp2f(fmaf(s[r][i], scale2, -l2));
+          s[r][i] = p;
+          dp[r][i] = p * (dp[r][i] - dvj);
+        }
+      }
+      store_block(pw, s, tx, ty);
+      __syncwarp();
+      update<DH>(dva, pw, dos, n8, tx, ty);
+    }
+    __syncthreads();  // every warp is done with dO(t) (and its block of P^T)
+    if (t + 1 < n_tiles) {  // lands during dK(t)
+      copy_keys<DH>(dos, L::RS, dout, x0 + BK, nq, gap, n_kpts);
+      cp_async_commit();
+    }
+    if (!live) continue;
+    store_block(pw, dp, tx, ty);
+    __syncwarp();
+    update<DH>(dka, pw, qs, n8, tx, ty);
   }
-  if (valid) {
-    store_half<DH>(dk + base + (size_t)krow * DH, half, dkh, scale);
-    store_half<DH>(dv + base + (size_t)krow * DH, half, dvh, 1.f);
-  }
+  if (!live) return;
+  store_rows<DH>(dk + base, dka, row0, rl, n_live, tx, scale);
+  store_rows<DH>(dv + base, dva, row0, rl, n_live, tx, 1.f);
 }
 
 // Above 48 KB a block's shared memory is dynamic only; the carveout asks for
-// the SM's whole 228 KB, so that FWD_BLOCKS blocks fit.
+// the SM's whole 228 KB, so that FWD_BLOCKS (BWD_BLOCKS) blocks fit.
 template <typename F>
-void prepare_fwd(F* kernel, size_t bytes) {
+void prepare_smem(F* kernel, size_t bytes) {
   cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
                        (int)cudaSharedmemCarveoutMaxShared);
@@ -616,7 +742,7 @@ template <int DH, int MODE>
 void launch_attn_mode(const float* q, const float* k, const float* v, float* o,
                       int BH, int S, int n_kpts, float scale, cudaStream_t st) {
   constexpr size_t bytes = FwdSmem<DH>::bytes;
-  prepare_fwd(attn_fwd_kernel<DH, MODE>, bytes);
+  prepare_smem(attn_fwd_kernel<DH, MODE>, bytes);
   const dim3 grid((S + BQ - 1) / BQ, BH);
   attn_fwd_kernel<DH, MODE><<<grid, FT, bytes, st>>>(q, k, v, o, S, n_kpts, scale);
 }
@@ -643,7 +769,7 @@ void launch_cross_dh(const float* q, const float* k, const float* v, float* o,
                      float* lse, int BH, int S, int n_views, int n_kpts, float scale,
                      cudaStream_t st) {
   constexpr size_t bytes = FwdSmem<DH>::bytes;
-  prepare_fwd(cross_attn_fwd_kernel<DH, LSE>, bytes);
+  prepare_smem(cross_attn_fwd_kernel<DH, LSE>, bytes);
   const int tiles = (n_kpts + BQ - 1) / BQ;
   const dim3 grid(n_views * tiles, BH);
   cross_attn_fwd_kernel<DH, LSE><<<grid, FT, bytes, st>>>(q, k, v, o, lse, S, n_views,
@@ -670,11 +796,35 @@ int launch_cross_fwd(const float* q, const float* k, const float* v, float* o,
   return (int)cudaGetLastError();
 }
 
+template <int DH>
+void launch_bwd_dq(const float* q, const float* k, const float* v, const float* dout,
+                   const float* lse, const float* dvec, float* dq, int BH, int S,
+                   int n_views, int n_kpts, float scale, cudaStream_t st) {
+  constexpr size_t bytes = BwdSmem<DH>::bytes;
+  prepare_smem(cross_attn_bwd_dq_kernel<DH>, bytes);
+  const int tiles = (n_kpts + BQ - 1) / BQ;
+  const dim3 grid(n_views * tiles, BH);
+  cross_attn_bwd_dq_kernel<DH><<<grid, FT, bytes, st>>>(
+      q, k, v, dout, lse, dvec, dq, S, n_views, n_kpts, tiles, scale);
+}
+
+template <int DH>
+void launch_bwd_dkv(const float* q, const float* k, const float* v, const float* dout,
+                    const float* lse, const float* dvec, float* dk, float* dv, int BH,
+                    int S, int n_views, int n_kpts, float scale, cudaStream_t st) {
+  constexpr size_t bytes = BwdSmem<DH>::bytes;
+  prepare_smem(cross_attn_bwd_dkv_kernel<DH>, bytes);
+  const int tiles = (n_kpts + BQ - 1) / BQ;
+  const dim3 grid(n_views * tiles, BH);
+  cross_attn_bwd_dkv_kernel<DH><<<grid, FT, bytes, st>>>(
+      q, k, v, dout, lse, dvec, dk, dv, S, n_views, n_kpts, tiles, scale);
+}
+
 // {blocks per SM, registers, local (spill) bytes per thread, dynamic shared
-// bytes, query rows per block} of one forward kernel, as the runtime sees it.
+// bytes, owned rows per block} of one kernel, as the runtime sees it.
 template <typename F>
-int fwd_info(F* kernel, size_t bytes, int* info) {
-  prepare_fwd(kernel, bytes);
+int kernel_info(F* kernel, size_t bytes, int* info) {
+  prepare_smem(kernel, bytes);
   cudaFuncAttributes a;
   int blocks = 0;
   if (cudaFuncGetAttributes(&a, kernel) != cudaSuccess ||
@@ -690,14 +840,16 @@ int fwd_info(F* kernel, size_t bytes, int* info) {
 }
 
 template <int DH>
-int fwd_info_dh(int which, int* info) {
-  constexpr size_t bytes = FwdSmem<DH>::bytes;
+int kernel_info_dh(int which, int* info) {
+  constexpr size_t fwd = FwdSmem<DH>::bytes, bwd = BwdSmem<DH>::bytes;
   switch (which) {
-    case 0: return fwd_info(attn_fwd_kernel<DH, kFull>, bytes, info);
-    case 1: return fwd_info(attn_fwd_kernel<DH, kSelf>, bytes, info);
-    case 2: return fwd_info(attn_fwd_kernel<DH, kCross>, bytes, info);
-    case 3: return fwd_info(cross_attn_fwd_kernel<DH, false>, bytes, info);
-    case 4: return fwd_info(cross_attn_fwd_kernel<DH, true>, bytes, info);
+    case 0: return kernel_info(attn_fwd_kernel<DH, kFull>, fwd, info);
+    case 1: return kernel_info(attn_fwd_kernel<DH, kSelf>, fwd, info);
+    case 2: return kernel_info(attn_fwd_kernel<DH, kCross>, fwd, info);
+    case 3: return kernel_info(cross_attn_fwd_kernel<DH, false>, fwd, info);
+    case 4: return kernel_info(cross_attn_fwd_kernel<DH, true>, fwd, info);
+    case 5: return kernel_info(cross_attn_bwd_dq_kernel<DH>, bwd, info);
+    case 6: return kernel_info(cross_attn_bwd_dkv_kernel<DH>, bwd, info);
     default: return -1;
   }
 }
@@ -741,12 +893,10 @@ int cross_attn_bwd_dq(const float* q, const float* k, const float* v,
                       float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (!cross_shape_ok(BH, S, n_views, n_kpts)) return -1;
-  const int tiles = (n_kpts + BR - 1) / BR;
-  const dim3 grid(n_views * tiles, BH);
   switch (dh) {
-    case 16: cross_attn_bwd_dq_kernel<16><<<grid, 2 * BR, 0, st>>>(q, k, v, dout, lse, dvec, dq, S, n_views, n_kpts, tiles, scale); break;
-    case 32: cross_attn_bwd_dq_kernel<32><<<grid, 2 * BR, 0, st>>>(q, k, v, dout, lse, dvec, dq, S, n_views, n_kpts, tiles, scale); break;
-    case 64: cross_attn_bwd_dq_kernel<64><<<grid, 2 * BR, 0, st>>>(q, k, v, dout, lse, dvec, dq, S, n_views, n_kpts, tiles, scale); break;
+    case 16: launch_bwd_dq<16>(q, k, v, dout, lse, dvec, dq, BH, S, n_views, n_kpts, scale, st); break;
+    case 32: launch_bwd_dq<32>(q, k, v, dout, lse, dvec, dq, BH, S, n_views, n_kpts, scale, st); break;
+    case 64: launch_bwd_dq<64>(q, k, v, dout, lse, dvec, dq, BH, S, n_views, n_kpts, scale, st); break;
     default: return -1;
   }
   return (int)cudaGetLastError();
@@ -758,25 +908,24 @@ int cross_attn_bwd_dkv(const float* q, const float* k, const float* v,
                        int n_kpts, float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (!cross_shape_ok(BH, S, n_views, n_kpts)) return -1;
-  const int tiles = (n_kpts + BR - 1) / BR;
-  const dim3 grid(n_views * tiles, BH);
   switch (dh) {
-    case 16: cross_attn_bwd_dkv_kernel<16><<<grid, 2 * BR, 0, st>>>(q, k, v, dout, lse, dvec, dk, dv, S, n_views, n_kpts, tiles, scale); break;
-    case 32: cross_attn_bwd_dkv_kernel<32><<<grid, 2 * BR, 0, st>>>(q, k, v, dout, lse, dvec, dk, dv, S, n_views, n_kpts, tiles, scale); break;
-    case 64: cross_attn_bwd_dkv_kernel<64><<<grid, 2 * BR, 0, st>>>(q, k, v, dout, lse, dvec, dk, dv, S, n_views, n_kpts, tiles, scale); break;
+    case 16: launch_bwd_dkv<16>(q, k, v, dout, lse, dvec, dk, dv, BH, S, n_views, n_kpts, scale, st); break;
+    case 32: launch_bwd_dkv<32>(q, k, v, dout, lse, dvec, dk, dv, BH, S, n_views, n_kpts, scale, st); break;
+    case 64: launch_bwd_dkv<64>(q, k, v, dout, lse, dvec, dk, dv, BH, S, n_views, n_kpts, scale, st); break;
     default: return -1;
   }
   return (int)cudaGetLastError();
 }
 
-// Occupancy of a forward kernel: which = 0, 1, 2 for attn_fwd in modes full,
-// self, cross; 3 cross_attn_fwd; 4 cross_attn_fwd_lse. Fills info[5] (see
-// fwd_info) and returns 0, or -1 for an unsupported head width or kernel.
-int attn_fwd_info(int dh, int which, int* info) {
+// Occupancy of a kernel: which = 0, 1, 2 for attn_fwd in modes full, self,
+// cross; 3 cross_attn_fwd; 4 cross_attn_fwd_lse; 5 cross_attn_bwd_dq; 6
+// cross_attn_bwd_dkv. Fills info[5] (see kernel_info) and returns 0, or -1
+// for an unsupported head width or kernel.
+int attn_kernel_info(int dh, int which, int* info) {
   switch (dh) {
-    case 16: return fwd_info_dh<16>(which, info);
-    case 32: return fwd_info_dh<32>(which, info);
-    case 64: return fwd_info_dh<64>(which, info);
+    case 16: return kernel_info_dh<16>(which, info);
+    case 32: return kernel_info_dh<32>(which, info);
+    case 64: return kernel_info_dh<64>(which, info);
     default: return -1;
   }
 }
