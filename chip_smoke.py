@@ -15,8 +15,13 @@ Phases, each fatal on failure:
                    times, bounds and the library yardstick; one JSON line per
                    kernel. The backward kernels (cross-attention dq and dk/dv,
                    the Sinkhorn reverse sweep) are also held against autograd
-                   through the plain versions, and against themselves for
-                   equal bits.
+                   through the plain versions; the backward kernels and the
+                   Sinkhorn cluster kernels against themselves for equal bits.
+                   The cluster kernels' records carry their launch plan, the
+                   CUDA runtime's view of it and the SM clock under their
+                   launches; the sweep is also held and timed at 80 x 1025 x
+                   1025 (streamed). Bounds: the largest of FP32 operations,
+                   exponentials and bytes at the card's peak rates.
   4. reference  -- the pose pipeline on the card recovers the known poses of a
                    small exact synthetic 5-tuple.
   5. main_path  -- `cli.eval_multi_view.evaluate` at full width (V=5, K=1024,
@@ -64,6 +69,9 @@ ROOT = Path(__file__).resolve().parent
 PKG = "e2e_multi_view_matching_tpu_torch"
 PEAK_F32_OPS = 67e12  # H100 SXM, FP32 outside the tensor cores (data sheet)
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3 (data sheet)
+# exponentials: 16 a clock on each SM's special-function units x 132 SMs x
+# 1,980 MHz (the H100 SXM's maximum SM clock)
+PEAK_EXPS = 16 * 132 * 1.98e9
 ATTN_TOL = 2e-3  # online-softmax reordering drift bound (JAX test_chunked_softmax_drift_bounded)
 CROSS_TRAIN_TOL = 2e-4  # cross-attention training kernels: max |err| / max |reference|
 CROSS_LSE_TOL = 1e-5  # stashed LSE, absolute (a few float32 ulps at |lse| ~ 10)
@@ -126,11 +134,15 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def bound(ops, nbytes):
-    """(least ms for `ops` FP32 operations and `nbytes` of traffic, what binds)."""
+def bound(ops, nbytes, exps=0.0):
+    """(least ms, "operations" or "bytes", the unit that binds) for `ops` FP32
+    operations at 67 TFLOP/s, `exps` exponentials at PEAK_EXPS and `nbytes`
+    of traffic at 3.35 TB/s: the largest of the three times."""
     t_ops = ops / PEAK_F32_OPS * 1e3
+    t_exps = exps / PEAK_EXPS * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+    return max((t_ops, "operations", "fp32"), (t_exps, "operations", "exponential"),
+               (t_bytes, "bytes", "memory"))
 
 
 def build_phase():
@@ -272,10 +284,10 @@ def _attention_records(g):
         BH = Bt * h
         ops = 4.0 * BH * S * keys * dh + BH * S * keys  # FMAs x2 + one exp per score
         nbytes = 4 * BH * S * dh * 4  # q, k, v read once, o written once
-        b_ms, b_by = bound(ops, nbytes)
+        b_ms, b_by, b_unit = bound(ops, nbytes, exps=float(BH * S * keys))
         check(err <= ATTN_TOL, f"{name} {mode} K={K}: max |kernel - plain| {err} > {ATTN_TOL}")
         measured = {"max_abs_err": err, "tol": ATTN_TOL, "ms": ms, "plain_ms": plain_ms,
-                    "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+                    "bound_ms": b_ms, "bound_by": b_by, "bound_unit": b_unit, "library_ms": lib_ms,
                     "shape": [BH, S, dh], **_occupancy(name, BH, S, n_views, K, dh, mode)}
         if replaces is None:
             by_name[name].setdefault("train_shapes", []).append({"mode": mode, **measured})
@@ -394,13 +406,14 @@ def _cross_attn_train_records(g):
          plain_bwd, lib_bwd),
     ):
         key = name[len("cross_attn_"):]
-        b_ms, b_by = bound(ops, nbytes)
+        b_ms, b_by, b_unit = bound(ops, nbytes, exps=pairs)  # one exp per (query, key) pair
         rec = {"name": name, "route": "cuda", "source": f"{PKG}/ops/csrc/attention_cuda.cu",
                "replaces": f"{jax_file}:{line}", "launches": 0,
                "max_abs_err": err[key]["o_vs_plain" if key == "fwd_lse" else "vs_plain"],
                "tol": CROSS_TRAIN_TOL, "errors": err[key], "errors_ragged_8x300x64":
                small_err[key], "bitwise_repeatable": True, "ms": ms[key],
-               "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+               "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "bound_unit": b_unit,
+               "library_ms": lib_ms,
                "shape": [BH, S, dh], **_occupancy(name, BH, S, V, K, dh, "cross")}
         if key != "fwd_lse":
             rec["plain_and_library_cover"] = "dq, dk and dv together"
@@ -421,73 +434,101 @@ def _prob_err(z, z_ref):
     return float(((p - p_ref).abs() / p_ref.clamp(min=1.0)).max())
 
 
+def _cluster_info(kind, B, M, N, fn, ms):
+    """The launch plan of a cluster kernel at one shape, what the CUDA
+    runtime says of it (clusters that fit, registers, spills), the clusters
+    that would fit at each cluster size whose resident layout fits, and the
+    SM clock under ~1.5 s of launches of `fn` (`ms` each)."""
+    import ctypes
+
+    from e2e_multi_view_matching_tpu_torch.ops import cuda_build
+    from e2e_multi_view_matching_tpu_torch.ops import sinkhorn_cuda as sc
+
+    plan = sc.kernel_plan(kind, B, M, N)
+    lib = cuda_build.load("sinkhorn_cuda", sc._SIGNATURES)
+    by_size = {}
+    for cs in (1, 2, 4, 8, 16):  # 16: a non-portable cluster size
+        band = -(-M // cs)
+        smem = 4 * sc._smem_floats(kind, plan["resident"], band, N)
+        if smem <= sc.SMEM_BYTES:
+            info = (ctypes.c_int * 3)()
+            rc = lib.sinkhorn_cluster_info(0 if kind == "scaling" else 1, int(plan["resident"]),
+                                           plan["column_slots"], cs, smem, info)
+            by_size[cs] = info[0] if rc == 0 else f"error {rc}"
+    return {"cluster_size": plan["cluster_size"],
+            "residency": "resident" if plan["resident"] else "streamed",
+            "n_clusters": plan["n_clusters"], "clusters_that_fit": plan["clusters_that_fit"],
+            "clusters_that_fit_by_size": by_size, "column_slots": plan["column_slots"],
+            "registers": plan["registers"], "local_bytes": plan["local_bytes"],
+            "shared_bytes": plan["smem_bytes"], **_sm_clock_under(fn, max(1, int(1500 / ms)))}
+
+
 def _sinkhorn_record(g):
+    """`sinkhorn_scaling` at the eval shape (80 pair matrices of 1025 x 1025,
+    streamed) and the validation shape (80 of 401 x 401, resident): against
+    its plain version, at score scales 4 and 400, two runs giving the same
+    bits."""
     import torch
 
     from e2e_multi_view_matching_tpu_torch.ops import sinkhorn_cuda as sc
     from e2e_multi_view_matching_tpu_torch.ops.sinkhorn import log_optimal_transport
 
     dev = torch.device("cuda")
-    B, K, T = 80, 1024, 100  # B*P pair matrices of an eval chunk, 100 iterations
+    B, T = 80, 100  # B*P pair matrices of an eval chunk, 100 iterations
     alpha = torch.ones((), device=dev)
-    errs = []
-    for scale, tol in ((4.0, SINKHORN_TOL), (400.0, SINKHORN_EXTREME_TOL)):
-        scores = torch.randn(B, K, K, generator=g, device=dev) * scale
-        z = sc.log_optimal_transport_cuda(scores, alpha, T)
-        z_ref = log_optimal_transport(scores, alpha, T, impl="mxu")
-        torch.cuda.synchronize()
-        check(bool(torch.isfinite(z).all()), f"sinkhorn: non-finite output at scale {scale}")
-        zmax = float(z.max())
-        check(zmax < math.log(2 * K) + 1.0,
-              f"sinkhorn: max log_p {zmax} above log(2K)+1 at scale {scale}")
-        err = _prob_err(z, z_ref)
-        check(err <= tol, f"sinkhorn: max prob err {err} > {tol} at scale {scale}")
-        errs.append(err)
-        if scale == 4.0:
-            ms = cuda_ms(lambda: sc.log_optimal_transport_cuda(scores, alpha, T), 3)
-            plain_ms = cuda_ms(
-                lambda: log_optimal_transport(scores, alpha, T, impl="mxu"), 2)
     n_absorb = T // sc.ABSORB_EVERY
 
     def scaling_bound(K):
         # 4 flops per entry per scaling iteration (two matvecs), the exact first
         # iteration (2 exp + 4 add/max per entry), one exp + 2 adds per entry per
-        # rebuild, 3 per entry for the output; couplings read once, log
-        # assignment written once
+        # rebuild, 3 for the output; couplings read once, log assignment
+        # written once; 2 + n_absorb exponentials per entry
         elems = float(B * (K + 1) * (K + 1))
-        return bound(elems * (4 * (T - 1) + 6 + 3 * n_absorb + 3), 2.0 * elems * 4)
+        return bound(elems * (4 * (T - 1) + 6 + 3 * n_absorb + 3), 2.0 * elems * 4,
+                     exps=elems * (2 + n_absorb))
 
-    # the train path's validation batch: 80 pair matrices of 401 x 401
-    Kt = 400
-    scores = torch.randn(B, Kt, Kt, generator=g, device=dev) * 4.0
-    z = sc.log_optimal_transport_cuda(scores, alpha, T)
-    z_ref = log_optimal_transport(scores, alpha, T, impl="mxu")
-    torch.cuda.synchronize()
-    check(bool(torch.isfinite(z).all()), "sinkhorn: non-finite output at 401 x 401")
-    err_t = _prob_err(z, z_ref)
-    check(err_t <= SINKHORN_TOL, f"sinkhorn: max prob err {err_t} > {SINKHORN_TOL} at 401 x 401")
-    tb_ms, tb_by = scaling_bound(Kt)
-    train_shape = {
-        "max_abs_err": err_t, "tol": SINKHORN_TOL,
-        "ms": cuda_ms(lambda: sc.log_optimal_transport_cuda(scores, alpha, T), 3),
-        "plain_ms": cuda_ms(lambda: log_optimal_transport(scores, alpha, T, impl="mxu"), 2),
-        "bound_ms": tb_ms, "bound_by": tb_by, "library_ms": None,
-        "shape": [B, Kt + 1, Kt + 1, T]}
+    def shape(K, scales):
+        errs = {}
+        for scale, tol in scales:
+            scores = torch.randn(B, K, K, generator=g, device=dev) * scale
+            z = sc.log_optimal_transport_cuda(scores, alpha, T)
+            z_again = sc.log_optimal_transport_cuda(scores, alpha, T)
+            z_ref = log_optimal_transport(scores, alpha, T, impl="mxu")
+            torch.cuda.synchronize()
+            where = f"sinkhorn_scaling at {B} x {K + 1} x {K + 1}, scale {scale}"
+            check(bool(torch.isfinite(z).all()), f"{where}: non-finite output")
+            check(bool(torch.equal(z, z_again)), f"{where}: two runs give different bits")
+            zmax = float(z.max())
+            check(zmax < math.log(2 * K) + 1.0, f"{where}: max log_p {zmax} above log(2K)+1")
+            err = _prob_err(z, z_ref)
+            check(err <= tol, f"{where}: max prob err {err} > {tol}")
+            errs[scale] = err
+            if scale == 4.0:
+                run = lambda: sc.log_optimal_transport_cuda(scores, alpha, T)  # noqa: E731
+                ms = cuda_ms(run, 3)
+                plain_ms = cuda_ms(lambda: log_optimal_transport(scores, alpha, T, impl="mxu"), 2)
+                info = _cluster_info("scaling", B, K + 1, K + 1, run, ms)
+            del z, z_again, z_ref, scores
+        b_ms, b_by, b_unit = scaling_bound(K)
+        return errs, {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                      "bound_unit": b_unit, "library_ms": None, "shape": [B, K + 1, K + 1, T],
+                      "bitwise_repeatable": True, **info}
 
-    M = N = K + 1
-    b_ms, b_by = scaling_bound(K)
+    errs, measured = shape(1024, ((4.0, SINKHORN_TOL), (400.0, SINKHORN_EXTREME_TOL)))
+    errs_t, measured_t = shape(400, ((4.0, SINKHORN_TOL),))
     return {"name": "sinkhorn_scaling", "route": "cuda",
             "source": f"{PKG}/ops/csrc/sinkhorn_cuda.cu",
             "replaces": "e2e_multi_view_matching_tpu/ops/sinkhorn_pallas.py:106",
-            "launches": 0, "max_abs_err": errs[0], "tol": SINKHORN_TOL,
-            "max_abs_err_scale400": errs[1], "tol_scale400": SINKHORN_EXTREME_TOL,
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": None, "shape": [B, M, N, T], "train_shapes": [train_shape]}
+            "launches": 0, "max_abs_err": errs[4.0], "tol": SINKHORN_TOL,
+            "max_abs_err_scale400": errs[400.0], "tol_scale400": SINKHORN_EXTREME_TOL,
+            **measured,
+            "train_shapes": [{"max_abs_err": errs_t[4.0], "tol": SINKHORN_TOL, **measured_t}]}
 
 
 def _sinkhorn_train_records(g):
     """The three log-domain kernels at the training shape: 80 pair matrices
-    of 401 x 401 (B=8 tuples x 10 pairs, K=400), 100 iterations."""
+    of 401 x 401 (B=8 tuples x 10 pairs, K=400), 100 iterations; and the
+    reverse sweep at 80 x 1025 x 1025 (a training shape at K = 1024, streamed)."""
     import torch
 
     from e2e_multi_view_matching_tpu_torch.ops import sinkhorn as ts
@@ -518,21 +559,24 @@ def _sinkhorn_train_records(g):
           f"sinkhorn_log_stash: max dual err {err_uv} > {SINKHORN_DUAL_TOL}")
     check(bool(torch.equal(z_log, z_st)), "sinkhorn_log and sinkhorn_log_stash differ")
 
+    def sweep_err(C, U, V, w, log_mu, log_nu, G, G_plain, Kk, where):
+        ds, da = sc.dustbin_grads(G, Kk, Kk)
+        ds_p, da_p = sc.dustbin_grads(G_plain, Kk, Kk)
+        err = float((ds - ds_p).abs().max()) / max(float(ds_p.abs().max()), 1.0)
+        err_a = abs(float(da) - float(da_p))
+        check(err <= SINKHORN_GRAD_TOL,
+              f"sinkhorn_bwd {where} vs manual sweep: scaled dscores err {err} > {SINKHORN_GRAD_TOL}")
+        check(err_a <= SINKHORN_ALPHA_TOL * max(1.0, abs(float(da_p))),
+              f"sinkhorn_bwd {where} vs manual sweep: dalpha {float(da)} vs {float(da_p)}")
+        return err, err_a
+
     # backward: against the manual sweep (all pairs) and autograd (16 pairs)
     G = sc.sinkhorn_bwd(C, U, V, w, log_mu, log_nu)
     G_again = sc.sinkhorn_bwd(C, U, V, w, log_mu, log_nu)
     G_plain = ts.log_sinkhorn_bwd(C, U_plain, V_plain, w, log_mu, log_nu)
     torch.cuda.synchronize()
     check(bool(torch.equal(G, G_again)), "sinkhorn_bwd: two runs give different bits")
-    ds, da = sc.dustbin_grads(G, K, K)
-    ds_p, da_p = sc.dustbin_grads(G_plain, K, K)
-    gscale = max(float(ds_p.abs().max()), 1.0)
-    err_bwd = float((ds - ds_p).abs().max()) / gscale
-    err_da = abs(float(da) - float(da_p))
-    check(err_bwd <= SINKHORN_GRAD_TOL,
-          f"sinkhorn_bwd vs manual sweep: scaled dscores err {err_bwd} > {SINKHORN_GRAD_TOL}")
-    check(err_da <= SINKHORN_ALPHA_TOL * max(1.0, abs(float(da_p))),
-          f"sinkhorn_bwd vs manual sweep: dalpha {float(da)} vs {float(da_p)}")
+    err_bwd, err_da = sweep_err(C, U, V, w, log_mu, log_nu, G, G_plain, K, f"at {B} x {M} x {N}")
     nb = 16
     s_ag = scores[:nb].clone().requires_grad_()
     a_ag = alpha.clone().requires_grad_()
@@ -549,7 +593,7 @@ def _sinkhorn_train_records(g):
           f"sinkhorn_bwd vs autograd: scaled dscores err {err_ag} > {SINKHORN_GRAD_TOL}")
     check(err_da_ag <= SINKHORN_ALPHA_TOL * max(1.0, abs(float(da_ag))),
           f"sinkhorn_bwd vs autograd: dalpha {float(da_k)} vs {float(da_ag)}")
-    del z_ag, z_k, ds_ag, ds_k
+    del z_ag, z_k, ds_ag, ds_k, G_again
 
     # extreme scores (random-init magnitude): everything stays finite
     s400 = (torch.randn(nb, K, K, generator=g, device=dev) * 400.0).requires_grad_()
@@ -563,36 +607,71 @@ def _sinkhorn_train_records(g):
 
     ms_log = cuda_ms(lambda: sc.sinkhorn_log(C, log_mu, log_nu, T, norm), 3)
     ms_st = cuda_ms(lambda: sc.sinkhorn_log_stash(C, log_mu, log_nu, T, norm), 3)
-    ms_bwd = cuda_ms(lambda: sc.sinkhorn_bwd(C, U, V, w, log_mu, log_nu), 3)
+    run_bwd = lambda: sc.sinkhorn_bwd(C, U, V, w, log_mu, log_nu)  # noqa: E731
+    ms_bwd = cuda_ms(run_bwd, 3)
+    info_bwd = _cluster_info("bwd", B, M, N, run_bwd, ms_bwd)
     plain_fwd = cuda_ms(lambda: ts.log_sinkhorn(C, log_mu, log_nu, T), 2)
     plain_st = cuda_ms(lambda: ts.log_sinkhorn_stash(C, log_mu, log_nu, T), 2)
     plain_bwd = cuda_ms(lambda: ts.log_sinkhorn_bwd(C, U, V, w, log_mu, log_nu), 2)
     # per entry and iteration: each half-step adds the dual, takes the max,
-    # subtracts it, exponentiates and sums (5), twice; 3 for the output
-    fwd_ops = elems * (10 * T + 3)
+    # subtracts it, exponentiates and sums (5), twice; 3 for the output; two
+    # exponentials
+    fwd_ops, fwd_exps = elems * (10 * T + 3), elems * 2 * T
     stash_bytes = 4.0 * B * T * (M + N)
     # per entry and reverse step: Q and P each two adds, one exp, one multiply
-    # and one sum (10), plus the two-term update of G (2)
-    bwd_ops = elems * 12 * T
+    # and one sum (10), plus the two-term update of G (2); two exponentials
+    bwd_ops, bwd_exps = elems * 12 * T, elems * 2 * T
+    del G, G_plain, z400, ds400
+
+    # the sweep at 80 x 1025 x 1025: streamed from device memory
+    Kb = 1024
+    Mb = Kb + 1
+    scores_b = torch.randn(B, Kb, Kb, generator=g, device=dev) * 4.0
+    Cb, log_mu_b, log_nu_b, _ = ts.augment_couplings(scores_b, alpha)
+    del scores_b
+    wb = torch.randn(B, Mb, Mb, generator=g, device=dev)
+    _, Ub, Vb = ts.log_sinkhorn_stash(Cb, log_mu_b, log_nu_b, T)
+    Gb = sc.sinkhorn_bwd(Cb, Ub, Vb, wb, log_mu_b, log_nu_b)
+    Gb_again = sc.sinkhorn_bwd(Cb, Ub, Vb, wb, log_mu_b, log_nu_b)
+    Gb_plain = ts.log_sinkhorn_bwd(Cb, Ub, Vb, wb, log_mu_b, log_nu_b)
+    torch.cuda.synchronize()
+    check(bool(torch.equal(Gb, Gb_again)), f"sinkhorn_bwd at {B} x {Mb} x {Mb}: two runs differ")
+    err_b, err_da_b = sweep_err(Cb, Ub, Vb, wb, log_mu_b, log_nu_b, Gb, Gb_plain, Kb,
+                                f"at {B} x {Mb} x {Mb}")
+    del Gb, Gb_again, Gb_plain
+    run_b = lambda: sc.sinkhorn_bwd(Cb, Ub, Vb, wb, log_mu_b, log_nu_b)  # noqa: E731
+    ms_b = cuda_ms(run_b, 2)
+    info_b = _cluster_info("bwd", B, Mb, Mb, run_b, ms_b)
+    plain_b = cuda_ms(lambda: ts.log_sinkhorn_bwd(Cb, Ub, Vb, wb, log_mu_b, log_nu_b), 1)
+    elems_b = float(B * Mb * Mb)
+    bb_ms, bb_by, bb_unit = bound(elems_b * 12 * T, 3 * 4 * elems_b + 8.0 * B * T * Mb,
+                                  exps=elems_b * 2 * T)
+    big_sweep = {"max_abs_err": err_b, "tol": SINKHORN_GRAD_TOL, "dalpha_abs_err": err_da_b,
+                 "bitwise_repeatable": True, "ms": ms_b, "plain_ms": plain_b,
+                 "bound_ms": bb_ms, "bound_by": bb_by, "bound_unit": bb_unit,
+                 "library_ms": None, "shape": [B, Mb, Mb, T], **info_b}
+    del Cb, Ub, Vb, wb
+
     records = []
-    for name, line, err, tol, ms, plain_ms, ops, nbytes, extra in (
-        ("sinkhorn_log", 65, err_log, SINKHORN_TOL, ms_log, plain_fwd, fwd_ops,
+    for name, line, err, tol, ms, plain_ms, ops, exps, nbytes, extra in (
+        ("sinkhorn_log", 65, err_log, SINKHORN_TOL, ms_log, plain_fwd, fwd_ops, fwd_exps,
          2 * 4 * elems, {}),
-        ("sinkhorn_log_stash", 202, err_st, SINKHORN_TOL, ms_st, plain_st, fwd_ops,
+        ("sinkhorn_log_stash", 202, err_st, SINKHORN_TOL, ms_st, plain_st, fwd_ops, fwd_exps,
          2 * 4 * elems + stash_bytes, {"max_abs_err_duals": err_uv,
                                        "tol_duals": SINKHORN_DUAL_TOL}),
-        ("sinkhorn_bwd", 260, err_bwd, SINKHORN_GRAD_TOL, ms_bwd, plain_bwd, bwd_ops,
+        ("sinkhorn_bwd", 260, err_bwd, SINKHORN_GRAD_TOL, ms_bwd, plain_bwd, bwd_ops, bwd_exps,
          3 * 4 * elems + stash_bytes,
          {"dalpha_abs_err": err_da, "tol_dalpha": SINKHORN_ALPHA_TOL,
           "max_abs_err_vs_autograd": err_ag, "dalpha_abs_err_vs_autograd": err_da_ag,
-          "finite_at_scale400": True, "bitwise_repeatable": True}),
+          "finite_at_scale400": True, "bitwise_repeatable": True, **info_bwd,
+          "other_shapes": [big_sweep]}),
     ):
-        b_ms, b_by = bound(ops, nbytes)
+        b_ms, b_by, b_unit = bound(ops, nbytes, exps=exps)
         records.append({"name": name, "route": "cuda", "source": src,
                         "replaces": f"{jax_file}:{line}", "launches": 0,
                         "max_abs_err": err, "tol": tol, **extra, "ms": ms,
                         "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-                        "library_ms": None, "shape": [B, M, N, T]})
+                        "bound_unit": b_unit, "library_ms": None, "shape": [B, M, N, T]})
     return records
 
 
@@ -1368,10 +1447,16 @@ def _train_breakdown(sp, opt, state, dev, gen, reps=2):
             "backward_ms": bwd_ms, "optimizer_ms": opt_ms, **busy}
 
 
+# device time of an eval sub-chunk by kernel group (substrings of kernel names;
+# "attn_fwd_kernel" also names cross_attn_fwd_kernel)
+EVAL_GROUPS = {
+    "sinkhorn_scaling": ("scaling_cluster_kernel",),
+    "attention_fwd_kernels": ("attn_fwd_kernel",),
+    "cross_attn_fwd": ("cross_attn_fwd_kernel",)}
 # device time of a train step by kernel group (substrings of kernel names)
 TRAIN_GROUPS = {
     "sinkhorn_fwd": ("log_row_kernel", "log_col_kernel", "output_kernel"),
-    "sinkhorn_bwd": ("bwd_step_kernel", "bwd_col_kernel", "bwd_init_kernel"),
+    "sinkhorn_bwd": ("bwd_cluster_kernel",),
     "attention_fwd_kernels": ("attn_fwd_kernel",),
     "attention_bwd_kernels": ("cross_attn_bwd",)}
 
@@ -1409,7 +1494,8 @@ def breakdown_phase(sp, matcher, images, intr, size, reps=3):
         r6 = torch.ones(B * 10, 6, device="cuda")
         j24, _ = wall(lambda: eig_thresholded_solve(S24, r24, n_sweeps=8))
         j6, _ = wall(lambda: eig_thresholded_solve(S6, r6, n_sweeps=6))
-        busy = _device_busy(lambda: infer_subchunk(sp, matcher, images, intr, size))
+        busy = _device_busy(lambda: infer_subchunk(sp, matcher, images, intr, size),
+                            groups=EVAL_GROUPS)
     # the multi-view BA solves 24x24 once per LM iteration (20); the two-view BA
     # solves 6x6 once per LM iteration (10)
     jacobi_ms = 20 * j24 + 10 * j6

@@ -18,9 +18,17 @@ solves the transport with the kernels of `ops/csrc/sinkhorn_cuda.cu`:
 A CPU tensor takes the plain versions: `log_sinkhorn_mxu` / `log_sinkhorn`
 without grad, autograd through `log_sinkhorn` at the effective count under
 grad. A CUDA tensor launches a kernel or raises.
+
+`sinkhorn_scaling` and `sinkhorn_bwd` run on thread-block clusters, one
+cluster per pair matrix at a time (see the source's header). `cluster_plan`
+chooses their launch here, where the CPU tests reach it: the cluster size,
+whether the matrix stays in shared memory (resident) or streams from device
+memory, the number of persistent clusters, the columns a lane holds (the
+kernel instantiation) and the shared bytes.
 """
 
 import ctypes
+import functools
 
 import torch
 
@@ -35,11 +43,21 @@ ABSORB_EVERY = 10
 ALGORITHMS = ("scaling", "log")
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    "sinkhorn_scaling": (_I, [_P] * 11 + [_I] * 5 + [_F, _P]),
+    "sinkhorn_scaling": (_I, [_P] * 5 + [_I] * 5 + [_F] + [_I] * 5 + [_P]),
     "sinkhorn_log": (_I, [_P] * 8 + [_I] * 5 + [_F, _P]),
-    "sinkhorn_bwd": (_I, [_P] * 10 + [_I] * 4 + [_P]),
+    "sinkhorn_bwd": (_I, [_P] * 7 + [_I] * 9 + [_P]),
     "sinkhorn_rows_per_block": (_I, []),
+    "sinkhorn_cluster_info": (_I, [_I] * 5 + [_P]),
 }
+
+# The cluster kernels' launch plan; the numbers mirror the source's constants
+# (CT, CS_MAX, KC_STREAMED, the instantiations) and layouts.
+CLUSTER_THREADS = 512  # a block
+CLUSTER_WARPS = CLUSTER_THREADS // 32
+CLUSTER_SIZES = (1, 2, 4, 8)  # blocks (SMs) a cluster, up to the portable maximum
+COLUMN_SLOTS = (4, 8, 13, 16, 33)  # columns a lane: N <= 32 x 33
+SMEM_BYTES = 227 * 1024  # a block's shared memory on an H100
+L2_BUDGET_BYTES = 40e6  # streamed matrices in flight, inside the 50 MB L2
 
 # kernel launches since the last reset, one per solve or sweep (each a
 # sequence of CUDA launches inside one C function of the source)
@@ -75,7 +93,97 @@ def _lib_and_partials(couplings):
 def _raise_on(rc, name):
     if rc != 0:
         raise RuntimeError(f"{name} failed (code {rc}; -1: N too wide for the "
-                           "shared-memory tile, -2: no iterations)")
+                           "shared-memory tile or no kernel for the plan, -2: no "
+                           "iterations, -3: the cluster cannot be scheduled, -4: more "
+                           "clusters than fit at once, -5: plan and kernel layout "
+                           "differ; positive: a CUDA error)")
+
+
+def _smem_floats(kind, resident, band, N):
+    """Shared floats of one block (the source's scaling_layout, bwd_layout):
+    the band (K; C and G) when resident, the warps' column sums, the gathered
+    partials, the partials and column vectors, and row vectors."""
+    NP = _round4(N)
+    fixed = CLUSTER_WARPS + CLUSTER_SIZES[-1]
+    if kind == "scaling":  # the band as a span; 2 x (max, sum), column (max, sum),
+        # b v log_nu; u a log_mu
+        return (_round4(band * N + 3) if resident else 0) + (fixed + 9) * NP + 3 * _round4(band)
+    # 2 parities, gv (v_t - log_nu) v_{t-1} log_nu; u_t (u_t - log_mu) gu_T log_mu
+    return (2 * band * NP if resident else 0) + (fixed + 6) * NP + 4 * _round4(band)
+
+
+def _round4(x):
+    return -(-x // 4) * 4
+
+
+def cluster_plan(kind, B, M, N, capacity=None):
+    """Launch plan of the cluster kernel `kind` ("scaling" or "bwd") for B
+    pair matrices of M x N.
+
+    The cluster splits the rows into `cluster_size` bands. Resident where the
+    band (K for scaling; C and G for the sweep) fits the block's shared
+    memory: with the smallest such cluster, so that the most pairs are in
+    flight. Else streamed from device memory, with up to 8 blocks a cluster
+    (two rows a warp at least) and persistent clusters few enough that the
+    matrices in flight stay inside the L2 budget. `capacity` is the number of
+    such clusters the card holds at once (`sinkhorn_cluster_info`); None on
+    the CPU, where there is no card to ask.
+
+    Returns a dict: kind, cluster_size, band, resident, n_clusters,
+    column_slots (the columns a lane holds), smem_bytes, workspace
+    ({name: shape}).
+    """
+    if kind not in ("scaling", "bwd"):
+        raise ValueError(f"unknown cluster kernel {kind!r}")
+
+    def fits(cs):
+        return 4 * _smem_floats(kind, True, -(-M // cs), N) <= SMEM_BYTES
+
+    cs = next((c for c in CLUSTER_SIZES if fits(c)), None)
+    resident = cs is not None
+    if not resident:  # two rows a warp at least
+        cs = max(1, min(CLUSTER_SIZES[-1], M // (2 * CLUSTER_WARPS)))
+    band = -(-M // cs)
+    smem = 4 * _smem_floats(kind, resident, band, N)
+    if smem > SMEM_BYTES:
+        raise ValueError(f"sinkhorn_{kind}: N = {N} too wide for a block's shared memory")
+    # columns a lane: resident the smallest instantiation, streamed the largest
+    kc = next((k for k in COLUMN_SLOTS if 32 * k >= N), None)
+    if kc is None:
+        raise ValueError(f"sinkhorn_{kind} takes N <= {32 * COLUMN_SLOTS[-1]}, got {N}")
+    kc = kc if resident else COLUMN_SLOTS[-1]
+    if resident:
+        n = B
+    else:  # K for scaling; C and G for the sweep
+        in_flight = (1 if kind == "scaling" else 2) * 4 * M * N
+        n = max(1, min(B, int(L2_BUDGET_BYTES // in_flight)))
+    if capacity is not None:
+        n = min(n, capacity)
+    return {"kind": kind, "cluster_size": cs, "band": band, "resident": resident,
+            "n_clusters": n, "column_slots": kc, "smem_bytes": smem,
+            "workspace": {"K": (B, M, N)} if kind == "scaling" and not resident else {}}
+
+
+@functools.lru_cache(maxsize=None)
+def kernel_plan(kind, B, M, N, device_index=0):
+    """`cluster_plan` with the card's capacity, and what the CUDA runtime
+    says of the chosen instantiation: `clusters_that_fit`, `registers`,
+    `local_bytes` (spills)."""
+    lib = cuda_build.load("sinkhorn_cuda", _SIGNATURES)
+    plan = cluster_plan(kind, B, M, N)
+    info = (ctypes.c_int * 3)()
+    with torch.cuda.device(device_index):
+        rc = lib.sinkhorn_cluster_info(0 if kind == "scaling" else 1, int(plan["resident"]),
+                                       plan["column_slots"], plan["cluster_size"],
+                                       plan["smem_bytes"], info)
+    _raise_on(rc, f"sinkhorn_{kind} plan")
+    return {**cluster_plan(kind, B, M, N, capacity=info[0]), "clusters_that_fit": info[0],
+            "registers": info[1], "local_bytes": info[2]}
+
+
+def _plan_args(plan):
+    return (plan["cluster_size"], int(plan["resident"]), plan["n_clusters"],
+            plan["column_slots"], plan["smem_bytes"])
 
 
 def sinkhorn_scaling(couplings, log_mu, log_nu, n_iters, norm):
@@ -85,17 +193,13 @@ def sinkhorn_scaling(couplings, log_mu, log_nu, n_iters, norm):
     B, M, N = _check(couplings, log_mu, log_nu)
     if n_iters <= 0 or n_iters % ABSORB_EVERY:
         raise ValueError(f"n_iters must be a positive multiple of {ABSORB_EVERY}")
-    lib, part0 = _lib_and_partials(couplings)
+    lib = cuda_build.load("sinkhorn_cuda", _SIGNATURES)
+    plan = kernel_plan("scaling", B, M, N, couplings.device.index or 0)
     out = torch.empty_like(couplings)
-    K = torch.empty_like(couplings)
-    u = torch.empty_like(log_mu)
-    a = torch.empty_like(log_mu)
-    v = torch.empty_like(log_nu)
-    b = torch.empty_like(log_nu)
-    part1 = torch.empty_like(part0)
-    ptrs = [t.data_ptr() for t in (couplings, log_mu, log_nu, out, K, u, v, a, b,
-                                   part0, part1)]
+    K = couplings.new_empty(plan["workspace"].get("K", (0,)))
+    ptrs = [t.data_ptr() for t in (couplings, log_mu, log_nu, out, K)]
     rc = lib.sinkhorn_scaling(*ptrs, B, M, N, n_iters, ABSORB_EVERY, float(norm),
+                              *_plan_args(plan),
                               torch.cuda.current_stream(couplings.device).cuda_stream)
     _raise_on(rc, "sinkhorn_scaling")
     launches["sinkhorn_scaling"] += 1
@@ -142,12 +246,11 @@ def sinkhorn_bwd(couplings, U, V, g, log_mu, log_nu):
     T = U.shape[1]
     if U.shape != (B, T, M) or V.shape != (B, T, N) or g.shape != (B, M, N) or T < 1:
         raise ValueError("sinkhorn_bwd takes U (B, T, M), V (B, T, N), g (B, M, N), T >= 1")
-    lib, cpart = _lib_and_partials(couplings)
+    lib = cuda_build.load("sinkhorn_cuda", _SIGNATURES)
+    plan = kernel_plan("bwd", B, M, N, couplings.device.index or 0)
     G = torch.empty_like(couplings)
-    gu0 = torch.empty_like(log_mu)
-    gv = torch.empty_like(log_nu)
-    ptrs = [t.data_ptr() for t in (couplings, U, V, g, log_mu, log_nu, G, gu0, gv, cpart)]
-    rc = lib.sinkhorn_bwd(*ptrs, B, M, N, T,
+    ptrs = [t.data_ptr() for t in (couplings, U, V, g, log_mu, log_nu, G)]
+    rc = lib.sinkhorn_bwd(*ptrs, B, M, N, T, *_plan_args(plan),
                           torch.cuda.current_stream(couplings.device).cuda_stream)
     _raise_on(rc, "sinkhorn_bwd")
     launches["sinkhorn_bwd"] += 1

@@ -47,23 +47,45 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     assert result["bad"] == [], f"the port pulled in {result['bad']}"
 
 
-def test_chip_smoke_imports_no_jax_and_nothing_of_the_jax_package():
-    """Every import statement of `chip_smoke.py`, at any depth (it imports
-    most modules inside its phases), names torch, numpy, the standard library
-    or the port, never JAX, flax or the JAX package."""
-    tree = ast.parse(open(os.path.join(ROOT, "chip_smoke.py")).read())
+def _imports(path):
+    """(the modules every import statement of `path` names, at any depth,
+    and the parsed tree)."""
+    tree = ast.parse(open(os.path.join(ROOT, path)).read())
     names = set()
     for node in ast.walk(tree):
         if isinstance(node, ast.Import):
             names.update(a.name for a in node.names)
         elif isinstance(node, ast.ImportFrom):
             names.add(node.module)
+    return names, tree
+
+
+def _jax_side(names):
+    return sorted(n for n in names if n.split(".")[0] in ("jax", "jaxlib", "flax",
+                                                          "e2e_multi_view_matching_tpu"))
+
+
+def test_chip_smoke_imports_no_jax_and_nothing_of_the_jax_package():
+    """Every import statement of `chip_smoke.py`, at any depth (it imports
+    most modules inside its phases), names torch, numpy, the standard library
+    or the port, never JAX, flax or the JAX package."""
+    names, tree = _imports("chip_smoke.py")
     assert "e2e_multi_view_matching_tpu_torch.ops.attention_cuda" in {
         f"{n}.{a.name}" for node in ast.walk(tree) if isinstance(node, ast.ImportFrom)
         for n in [node.module] for a in node.names}
-    bad = sorted(n for n in names if n.split(".")[0] in ("jax", "jaxlib", "flax",
-                                                          "e2e_multi_view_matching_tpu"))
+    bad = _jax_side(names)
     assert bad == [], f"chip_smoke.py imports {bad}"
+
+
+@pytest.mark.parametrize("path", ["tests/test_torch_kernels_cuda.py",
+                                  "tests/test_torch_sinkhorn_cuda.py"])
+def test_card_test_files_import_no_jax(path):
+    """The card's kernel tests run where JAX is not installed: their files
+    import torch, pytest, the standard library and the port only."""
+    names, _ = _imports(path)
+    assert any(n.startswith("e2e_multi_view_matching_tpu_torch") for n in names)
+    bad = _jax_side(names)
+    assert bad == [], f"{path} imports {bad}"
 
 
 def test_entry_points_raise_without_a_gpu(monkeypatch):
