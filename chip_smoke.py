@@ -16,11 +16,14 @@ Phases, each fatal on failure:
                    kernel. The backward kernels (cross-attention dq and dk/dv,
                    the Sinkhorn reverse sweep) are also held against autograd
                    through the plain versions; the backward kernels and the
-                   Sinkhorn cluster kernels against themselves for equal bits.
-                   The cluster kernels' records carry their launch plan, the
-                   CUDA runtime's view of it and the SM clock under their
-                   launches; the sweep is also held and timed at 80 x 1025 x
-                   1025 (streamed). Bounds: the largest of FP32 operations,
+                   Sinkhorn cluster kernels against themselves for equal bits
+                   (and the log kernel without the stash against itself with
+                   it). The cluster kernels' records carry their launch plan,
+                   the CUDA runtime's view of it, the SM clock under their
+                   launches and a per-iteration split (times at 10 and 100
+                   iterations: slope and intercept); the stashed log-domain
+                   forward and the sweep are also held and timed at 80 x 1025
+                   x 1025 (streamed). Bounds: the largest of FP32 operations,
                    exponentials and bytes at the card's peak rates.
   4. reference  -- the pose pipeline on the card recovers the known poses of a
                    small exact synthetic 5-tuple.
@@ -449,10 +452,10 @@ def _cluster_info(kind, B, M, N, fn, ms):
     by_size = {}
     for cs in (1, 2, 4, 8, 16):  # 16: a non-portable cluster size
         band = -(-M // cs)
-        smem = 4 * sc._smem_floats(kind, plan["resident"], band, N)
+        smem = 4 * sc._smem_floats(kind, plan["resident"], band, N, plan["column_slots"])
         if smem <= sc.SMEM_BYTES:
             info = (ctypes.c_int * 3)()
-            rc = lib.sinkhorn_cluster_info(0 if kind == "scaling" else 1, int(plan["resident"]),
+            rc = lib.sinkhorn_cluster_info(sc.CLUSTER_KINDS.index(kind), int(plan["resident"]),
                                            plan["column_slots"], cs, smem, info)
             by_size[cs] = info[0] if rc == 0 else f"error {rc}"
     return {"cluster_size": plan["cluster_size"],
@@ -461,6 +464,16 @@ def _cluster_info(kind, B, M, N, fn, ms):
             "clusters_that_fit_by_size": by_size, "column_slots": plan["column_slots"],
             "registers": plan["registers"], "local_bytes": plan["local_bytes"],
             "shared_bytes": plan["smem_bytes"], **_sm_clock_under(fn, max(1, int(1500 / ms)))}
+
+
+def _per_iteration(run, ms_100):
+    """A solve's time split into a per-iteration slope and an intercept (the
+    band's load and the output, and the launch): `run(T)` solves with T
+    iterations, `ms_100` is its time at T = 100; T = 10 is timed here."""
+    ms_10 = cuda_ms(lambda: run(10), 3)
+    slope = (ms_100 - ms_10) / 90
+    return {"ms_T10": ms_10, "ms_T100": ms_100, "us_per_iteration": slope * 1e3,
+            "intercept_ms": ms_10 - 10 * slope}
 
 
 def _sinkhorn_record(g):
@@ -508,11 +521,13 @@ def _sinkhorn_record(g):
                 ms = cuda_ms(run, 3)
                 plain_ms = cuda_ms(lambda: log_optimal_transport(scores, alpha, T, impl="mxu"), 2)
                 info = _cluster_info("scaling", B, K + 1, K + 1, run, ms)
+                split = _per_iteration(
+                    lambda t: sc.log_optimal_transport_cuda(scores, alpha, t), ms)
             del z, z_again, z_ref, scores
         b_ms, b_by, b_unit = scaling_bound(K)
         return errs, {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
                       "bound_unit": b_unit, "library_ms": None, "shape": [B, K + 1, K + 1, T],
-                      "bitwise_repeatable": True, **info}
+                      "bitwise_repeatable": True, **info, "per_iteration": split}
 
     errs, measured = shape(1024, ((4.0, SINKHORN_TOL), (400.0, SINKHORN_EXTREME_TOL)))
     errs_t, measured_t = shape(400, ((4.0, SINKHORN_TOL),))
@@ -528,7 +543,9 @@ def _sinkhorn_record(g):
 def _sinkhorn_train_records(g):
     """The three log-domain kernels at the training shape: 80 pair matrices
     of 401 x 401 (B=8 tuples x 10 pairs, K=400), 100 iterations; and the
-    reverse sweep at 80 x 1025 x 1025 (a training shape at K = 1024, streamed)."""
+    stashed forward and the reverse sweep at 80 x 1025 x 1025 (a training
+    shape at K = 1024, streamed). Each also timed at 10 iterations, for the
+    per-iteration split."""
     import torch
 
     from e2e_multi_view_matching_tpu_torch.ops import sinkhorn as ts
@@ -545,19 +562,33 @@ def _sinkhorn_train_records(g):
     src = f"{PKG}/ops/csrc/sinkhorn_cuda.cu"
     jax_file = "e2e_multi_view_matching_tpu/ops/sinkhorn_pallas.py"
 
+    def forward_errs(C, log_mu, log_nu, norm, where):
+        """The log kernel without and with the stash against the plain
+        stashed forward; the same bits on two runs and from both."""
+        z_plain, U_plain, V_plain = ts.log_sinkhorn_stash(C, log_mu, log_nu, T)
+        z_plain = z_plain - norm
+        z_log = sc.sinkhorn_log(C, log_mu, log_nu, T, norm)
+        z_again = sc.sinkhorn_log(C, log_mu, log_nu, T, norm)
+        z_st, U, V = sc.sinkhorn_log_stash(C, log_mu, log_nu, T, norm)
+        z_st_again = sc.sinkhorn_log_stash(C, log_mu, log_nu, T, norm)[0]
+        torch.cuda.synchronize()
+        err_log, err_st = _prob_err(z_log, z_plain), _prob_err(z_st, z_plain)
+        err_uv = max(float((U - U_plain).abs().max()), float((V - V_plain).abs().max()))
+        check(err_log <= SINKHORN_TOL,
+              f"sinkhorn_log {where}: max prob err {err_log} > {SINKHORN_TOL}")
+        check(err_st <= SINKHORN_TOL,
+              f"sinkhorn_log_stash {where}: max prob err {err_st} > {SINKHORN_TOL}")
+        check(err_uv <= SINKHORN_DUAL_TOL,
+              f"sinkhorn_log_stash {where}: max dual err {err_uv} > {SINKHORN_DUAL_TOL}")
+        check(bool(torch.equal(z_log, z_again)), f"sinkhorn_log {where}: two runs differ")
+        check(bool(torch.equal(z_st, z_st_again)), f"sinkhorn_log_stash {where}: two runs differ")
+        check(bool(torch.equal(z_log, z_st)),
+              f"sinkhorn_log and sinkhorn_log_stash {where} differ")
+        return err_log, err_st, err_uv, U, V, U_plain, V_plain
+
     # forward: exact log domain, without and with the stash
-    z_plain, U_plain, V_plain = ts.log_sinkhorn_stash(C, log_mu, log_nu, T)
-    z_plain = z_plain - norm
-    z_log = sc.sinkhorn_log(C, log_mu, log_nu, T, norm)
-    z_st, U, V = sc.sinkhorn_log_stash(C, log_mu, log_nu, T, norm)
-    torch.cuda.synchronize()
-    err_log, err_st = _prob_err(z_log, z_plain), _prob_err(z_st, z_plain)
-    err_uv = max(float((U - U_plain).abs().max()), float((V - V_plain).abs().max()))
-    check(err_log <= SINKHORN_TOL, f"sinkhorn_log: max prob err {err_log} > {SINKHORN_TOL}")
-    check(err_st <= SINKHORN_TOL, f"sinkhorn_log_stash: max prob err {err_st} > {SINKHORN_TOL}")
-    check(err_uv <= SINKHORN_DUAL_TOL,
-          f"sinkhorn_log_stash: max dual err {err_uv} > {SINKHORN_DUAL_TOL}")
-    check(bool(torch.equal(z_log, z_st)), "sinkhorn_log and sinkhorn_log_stash differ")
+    err_log, err_st, err_uv, U, V, U_plain, V_plain = forward_errs(
+        C, log_mu, log_nu, norm, f"at {B} x {M} x {N}")
 
     def sweep_err(C, U, V, w, log_mu, log_nu, G, G_plain, Kk, where):
         ds, da = sc.dustbin_grads(G, Kk, Kk)
@@ -605,11 +636,25 @@ def _sinkhorn_train_records(g):
     check(float(z400.detach().max()) < math.log(2 * K) + 1.0,
           "sinkhorn_log_stash: log_p above ceiling")
 
-    ms_log = cuda_ms(lambda: sc.sinkhorn_log(C, log_mu, log_nu, T, norm), 3)
-    ms_st = cuda_ms(lambda: sc.sinkhorn_log_stash(C, log_mu, log_nu, T, norm), 3)
+    def run_log(C, log_mu, log_nu, norm):
+        return lambda t=T: sc.sinkhorn_log(C, log_mu, log_nu, t, norm)
+
+    def run_stash(C, log_mu, log_nu, norm):
+        return lambda t=T: sc.sinkhorn_log_stash(C, log_mu, log_nu, t, norm)
+
+    run_l, run_s = run_log(C, log_mu, log_nu, norm), run_stash(C, log_mu, log_nu, norm)
+    ms_log, ms_st = cuda_ms(run_l, 3), cuda_ms(run_s, 3)
+    info_log = {**_cluster_info("log", B, M, N, run_l, ms_log),
+                "per_iteration": _per_iteration(run_l, ms_log)}
+    info_st = {**_cluster_info("log", B, M, N, run_s, ms_st),
+               "per_iteration": _per_iteration(run_s, ms_st)}
     run_bwd = lambda: sc.sinkhorn_bwd(C, U, V, w, log_mu, log_nu)  # noqa: E731
     ms_bwd = cuda_ms(run_bwd, 3)
     info_bwd = _cluster_info("bwd", B, M, N, run_bwd, ms_bwd)
+    U10, V10 = U[:, :10].contiguous(), V[:, :10].contiguous()  # a 10-iteration solve's duals
+    info_bwd["per_iteration"] = _per_iteration(
+        lambda t: sc.sinkhorn_bwd(C, U10, V10, w, log_mu, log_nu), ms_bwd)
+    del U10, V10
     plain_fwd = cuda_ms(lambda: ts.log_sinkhorn(C, log_mu, log_nu, T), 2)
     plain_st = cuda_ms(lambda: ts.log_sinkhorn_stash(C, log_mu, log_nu, T), 2)
     plain_bwd = cuda_ms(lambda: ts.log_sinkhorn_bwd(C, U, V, w, log_mu, log_nu), 2)
@@ -623,14 +668,28 @@ def _sinkhorn_train_records(g):
     bwd_ops, bwd_exps = elems * 12 * T, elems * 2 * T
     del G, G_plain, z400, ds400
 
-    # the sweep at 80 x 1025 x 1025: streamed from device memory
+    # the stashed forward and the sweep at 80 x 1025 x 1025: streamed from
+    # device memory
     Kb = 1024
     Mb = Kb + 1
+    elems_b = float(B * Mb * Mb)
     scores_b = torch.randn(B, Kb, Kb, generator=g, device=dev) * 4.0
-    Cb, log_mu_b, log_nu_b, _ = ts.augment_couplings(scores_b, alpha)
+    Cb, log_mu_b, log_nu_b, norm_b = ts.augment_couplings(scores_b, alpha)
     del scores_b
+    _, err_st_b, err_uv_b, _, _, Ub, Vb = forward_errs(Cb, log_mu_b, log_nu_b, norm_b,
+                                                       f"at {B} x {Mb} x {Mb}")
+    run_sb = run_stash(Cb, log_mu_b, log_nu_b, norm_b)
+    ms_sb = cuda_ms(run_sb, 3)
+    info_sb = {**_cluster_info("log", B, Mb, Mb, run_sb, ms_sb),
+               "per_iteration": _per_iteration(run_sb, ms_sb)}
+    plain_sb = cuda_ms(lambda: ts.log_sinkhorn_stash(Cb, log_mu_b, log_nu_b, T), 1)
+    sb_ms, sb_by, sb_unit = bound(elems_b * (10 * T + 3), 2 * 4 * elems_b + 4.0 * B * T * 2 * Mb,
+                                  exps=elems_b * 2 * T)
+    big_stash = {"max_abs_err": err_st_b, "tol": SINKHORN_TOL, "max_abs_err_duals": err_uv_b,
+                 "tol_duals": SINKHORN_DUAL_TOL, "bitwise_repeatable": True, "ms": ms_sb,
+                 "plain_ms": plain_sb, "bound_ms": sb_ms, "bound_by": sb_by,
+                 "bound_unit": sb_unit, "library_ms": None, "shape": [B, Mb, Mb, T], **info_sb}
     wb = torch.randn(B, Mb, Mb, generator=g, device=dev)
-    _, Ub, Vb = ts.log_sinkhorn_stash(Cb, log_mu_b, log_nu_b, T)
     Gb = sc.sinkhorn_bwd(Cb, Ub, Vb, wb, log_mu_b, log_nu_b)
     Gb_again = sc.sinkhorn_bwd(Cb, Ub, Vb, wb, log_mu_b, log_nu_b)
     Gb_plain = ts.log_sinkhorn_bwd(Cb, Ub, Vb, wb, log_mu_b, log_nu_b)
@@ -643,7 +702,6 @@ def _sinkhorn_train_records(g):
     ms_b = cuda_ms(run_b, 2)
     info_b = _cluster_info("bwd", B, Mb, Mb, run_b, ms_b)
     plain_b = cuda_ms(lambda: ts.log_sinkhorn_bwd(Cb, Ub, Vb, wb, log_mu_b, log_nu_b), 1)
-    elems_b = float(B * Mb * Mb)
     bb_ms, bb_by, bb_unit = bound(elems_b * 12 * T, 3 * 4 * elems_b + 8.0 * B * T * Mb,
                                   exps=elems_b * 2 * T)
     big_sweep = {"max_abs_err": err_b, "tol": SINKHORN_GRAD_TOL, "dalpha_abs_err": err_da_b,
@@ -655,10 +713,12 @@ def _sinkhorn_train_records(g):
     records = []
     for name, line, err, tol, ms, plain_ms, ops, exps, nbytes, extra in (
         ("sinkhorn_log", 65, err_log, SINKHORN_TOL, ms_log, plain_fwd, fwd_ops, fwd_exps,
-         2 * 4 * elems, {}),
+         2 * 4 * elems, {"bitwise_repeatable": True, "same_bits_as_stash": True, **info_log}),
         ("sinkhorn_log_stash", 202, err_st, SINKHORN_TOL, ms_st, plain_st, fwd_ops, fwd_exps,
-         2 * 4 * elems + stash_bytes, {"max_abs_err_duals": err_uv,
-                                       "tol_duals": SINKHORN_DUAL_TOL}),
+         2 * 4 * elems + stash_bytes,
+         {"max_abs_err_duals": err_uv, "tol_duals": SINKHORN_DUAL_TOL,
+          "bitwise_repeatable": True, "same_bits_as_log": True, **info_st,
+          "other_shapes": [big_stash]}),
         ("sinkhorn_bwd", 260, err_bwd, SINKHORN_GRAD_TOL, ms_bwd, plain_bwd, bwd_ops, bwd_exps,
          3 * 4 * elems + stash_bytes,
          {"dalpha_abs_err": err_da, "tol_dalpha": SINKHORN_ALPHA_TOL,
@@ -1455,7 +1515,7 @@ EVAL_GROUPS = {
     "cross_attn_fwd": ("cross_attn_fwd_kernel",)}
 # device time of a train step by kernel group (substrings of kernel names)
 TRAIN_GROUPS = {
-    "sinkhorn_fwd": ("log_row_kernel", "log_col_kernel", "output_kernel"),
+    "sinkhorn_fwd": ("log_cluster_kernel",),
     "sinkhorn_bwd": ("bwd_cluster_kernel",),
     "attention_fwd_kernels": ("attn_fwd_kernel",),
     "attention_bwd_kernels": ("cross_attn_bwd",)}

@@ -15,37 +15,38 @@
 // matrix 4.2 MB, more than a block's 227 KB of shared memory; a batch of 80
 // is 51 MB / 336 MB against 50 MB of L2.
 //
-// sinkhorn_scaling and sinkhorn_bwd: one thread-block cluster owns one pair
-// matrix for all its iterations, in one launch; the clusters are persistent,
-// each walking over the pairs cid, cid + n_clusters, ...
+// All three run on thread-block clusters: one cluster owns one pair matrix
+// for all its iterations, in one launch; the clusters are persistent, each
+// walking over the pairs cid, cid + n_clusters, ...
 //
 // * The cluster's CS blocks (one per SM) split the rows into contiguous
 //   bands. Warp w of a block owns the band rows w, w + 16, ...; lane l owns
 //   the columns l, l + 32, ... (KC of them). A warp takes one row at a time
 //   into registers, every load of the row in flight at once (lanes past N
-//   load nothing), so every ROW reduction (a_i, the first iteration's u_i,
-//   the sweep's gu_i) finishes inside a warp, and the row's contribution to
-//   the COLUMN reductions stays in the lanes' registers for the whole pass.
+//   load nothing), so every ROW reduction (a_i, the log-domain u_i, the
+//   sweep's gu_i) finishes inside a warp, and the row's contribution to the
+//   COLUMN reductions stays in the lanes' registers for the whole pass.
 // * Every column reduction goes through distributed shared memory (DSMEM):
-//   the block sums its 16 warps' vectors in warp order and writes its band's
-//   partial vector to its own shared memory; after the cluster barrier every
-//   block copies the CS partial vectors (map_shared_rank, 16 bytes a load)
-//   and sums them in rank order into the whole b (gv, or the first
-//   iteration's column log-sum-exp from (max, sum) pairs) itself. Every block
-//   forms the same bits, so one cluster barrier per iteration is enough; the
-//   partials are double buffered so that iteration t+1's writes cannot race
-//   iteration t's reads. No atomics: two runs give the same bits.
+//   the block merges its 16 warps' vectors in warp order and writes its
+//   band's partial vector to its own shared memory; after the cluster barrier
+//   every block copies the CS partial vectors (map_shared_rank, 16 bytes a
+//   load; the log kernel reads them in place) and merges them in rank order
+//   into the whole b (gv, or the column log-sum-exp from (max, sum) pairs)
+//   itself. Every block forms the same
+//   bits, so one cluster barrier per iteration is enough; the partials are
+//   double buffered so that iteration t+1's writes cannot race iteration t's
+//   reads. No atomics: two runs give the same bits.
 // * Residency is one template parameter RES of each kernel body. RES (the
 //   401 x 401 shapes): the band stays in shared memory for all iterations
 //   and every input is read from device memory once. sinkhorn_scaling keeps
 //   its band of K (C is copied in again, with cp.async while the cluster
-//   exchanges, before each of the 10 rebuilds); sinkhorn_bwd keeps its bands
-//   of C and G and writes G once, at the end; the stashed U[:, t] and
-//   V[:, t-1:t+1] rows are the only per-step reads, staged while the cluster
-//   waits at its barrier. !RES (the 1025 x 1025 shapes): rows stream from
-//   device memory straight into registers (a row is consumed by the warp
-//   that loads it), and n_clusters is chosen so that the matrices in flight
-//   (K; C and G) stay inside the 50 MB L2.
+//   exchanges, before each of the 10 rebuilds); sinkhorn_log keeps its band
+//   of C; sinkhorn_bwd keeps its bands of C and G and writes G once, at the
+//   end; the stashed U[:, t] and V[:, t-1:t+1] rows are the only per-step
+//   reads, staged while the cluster waits at its barrier. !RES (the 1025 x
+//   1025 shapes): rows stream from device memory straight into registers (a
+//   row is consumed by the warp that loads it), and n_clusters is chosen so
+//   that the matrices in flight (K; C; C and G) stay inside the 50 MB L2.
 // * The plan (CS, RES, n_clusters, KC, shared bytes) is made in
 //   ops/sinkhorn_cuda.py; the C side checks it against its own layout and
 //   cudaOccupancyMaxActiveClusters and returns a non-zero code where the
@@ -68,11 +69,20 @@
 //   4. output (C + (u + v)) - norm.
 //
 // sinkhorn_log: n_iters times the exact iteration of step 1, max-subtracted,
-// u_0 = v_0 = 0; with the stash, iteration t writes u_t, v_t straight into
-// U (B, T, M), V (B, T, N). Output (C + (u + v)) - norm. A block owns R =
-// 16 rows of one pair, stages them in shared memory and finishes their row
-// reductions; a second launch merges the column partials over the row blocks
-// in a fixed order (no atomics), two launches an iteration.
+// u_0 = v_0 = 0, then the output (C + (u + v)) - norm. One pass over the band
+// an iteration: a warp's row gives u_i (row max, then the sum of exp(x - max)
+// with v added, inside the warp); from the same registers each lane folds
+// C_ij + u_i into its columns' running (max, sum) pairs with one exponential
+// an entry (lse_merge, an online log-sum-exp). So an entry costs the two
+// exponentials of the iteration and no more, on the special-function unit
+// (exp_ftz), and the resident band's rows are padded with -inf to the lanes'
+// slots, so that no load of an iteration is predicated. The 16 warps' pairs
+// meet in shared memory, the blocks' pairs are read over DSMEM after one
+// cluster barrier, each merged in a fixed order, and every block forms
+// v = log_nu - (log S + max). With the stash (a uniform flag: it only adds
+// stores), iteration t writes the band's u_t to U (B, T, M) while the cluster
+// is at the barrier, and each block its share of v_t's columns to V (B, T,
+// N); without, U (B, M) and V (B, N) receive the last duals.
 //
 // sinkhorn_bwd: cotangent of C for Z = C + u_T + v_T. With gu_T = rowsum(g),
 // gv_T = colsum(g), G = g, for t = T-1 .. 0:
@@ -85,6 +95,7 @@
 // log_sinkhorn_bwd.
 
 #include <cooperative_groups.h>
+#include <float.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -92,8 +103,6 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int R = 16;         // rows of one pair per block (log kernels)
-constexpr int THREADS = 256;  // 8 warps, 2 rows each in the row reductions
 constexpr float kTiny = 1e-30f;
 constexpr int CT = 512;       // threads of a cluster kernel's block
 constexpr int CW = CT / 32;   // its warps
@@ -110,88 +119,29 @@ __device__ __forceinline__ float warp_max(float x) {
   return x;
 }
 
-// One exact log-domain iteration, row half-step + column partial log-sum-exps.
-// grid (n_row_blocks, B). u_i = log_mu_i - LSE_j(C_ij + v_j) (v == nullptr: 0);
-// then per column the block's partial (max, sum exp) of C_ij + u_i over its
-// rows. sv, su: elements between two pairs in v and u (the stash is strided).
-__global__ void __launch_bounds__(THREADS)
-log_row_kernel(const float* __restrict__ C, const float* __restrict__ log_mu,
-               const float* __restrict__ v, size_t sv, float* __restrict__ u,
-               size_t su, float* __restrict__ pmax, float* __restrict__ psum,
-               int M, int N) {
-  extern __shared__ float sm[];
-  float* tile = sm;          // R * N
-  float* vs = sm + R * N;    // N
-  float* us = vs + N;        // R
-  const int pair = blockIdx.y, rb = blockIdx.x, nrb = gridDim.x;
-  const int i0 = rb * R;
-  const int rows = min(R, M - i0);
-  const float* Cp = C + ((size_t)pair * M + i0) * N;
-  for (int j = threadIdx.x; j < N; j += THREADS)
-    vs[j] = v ? v[(size_t)pair * sv + j] : 0.f;
-  for (int i = 0; i < rows; ++i)
-    for (int j = threadIdx.x; j < N; j += THREADS)
-      tile[i * N + j] = Cp[(size_t)i * N + j];
-  __syncthreads();
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int i = warp; i < rows; i += THREADS / 32) {
-    float mx = -INFINITY;
-    for (int j = lane; j < N; j += 32) mx = fmaxf(mx, tile[i * N + j] + vs[j]);
-    mx = warp_max(mx);
-    float s = 0.f;
-    for (int j = lane; j < N; j += 32) s += expf((tile[i * N + j] + vs[j]) - mx);
-    s = warp_sum(s);
-    if (lane == 0) {
-      const float ui = log_mu[(size_t)pair * M + i0 + i] - (logf(s) + mx);
-      us[i] = ui;
-      u[(size_t)pair * su + i0 + i] = ui;
-    }
-  }
-  __syncthreads();
-  for (int j = threadIdx.x; j < N; j += THREADS) {
-    float mx = -INFINITY;
-    for (int i = 0; i < rows; ++i) mx = fmaxf(mx, tile[i * N + j] + us[i]);
-    float s = 0.f;
-    for (int i = 0; i < rows; ++i) s += expf((tile[i * N + j] + us[i]) - mx);
-    const size_t o = ((size_t)pair * nrb + rb) * N + j;
-    pmax[o] = mx;
-    psum[o] = s;
-  }
+// exp(x) on the special-function unit: ex2.approx.ftz of x log2(e), two
+// instructions (expf's range handling and __expf's subnormal path take five
+// or more); results below 2^-126 flush to 0, which no log-sum-exp term of
+// the log-domain kernel needs (every sum holds a term of 1).
+__device__ __forceinline__ float exp_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x * 1.4426950408889634f));
+  return y;
 }
 
-// v_j = log_nu_j - LSE_i(C_ij + u_i) from the per-block partials, merged over
-// the row blocks in order.
-__global__ void log_col_kernel(const float* __restrict__ pmax,
-                               const float* __restrict__ psum,
-                               const float* __restrict__ log_nu,
-                               float* __restrict__ v, size_t sv, int N, int nrb) {
-  const int pair = blockIdx.y;
-  const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= N) return;
-  const float* pm = pmax + (size_t)pair * nrb * N + j;
-  const float* ps = psum + (size_t)pair * nrb * N + j;
-  float mx = -INFINITY;
-  for (int r = 0; r < nrb; ++r) mx = fmaxf(mx, pm[(size_t)r * N]);
-  float s = 0.f;
-  for (int r = 0; r < nrb; ++r) s += ps[(size_t)r * N] * expf(pm[(size_t)r * N] - mx);
-  v[(size_t)pair * sv + j] = log_nu[(size_t)pair * N + j] - (logf(s) + mx);
-}
-
-// out = (C + (u + v)) - norm; su, sv: elements between two pairs in u and v
-__global__ void output_kernel(const float* __restrict__ C,
-                              const float* __restrict__ u, size_t su,
-                              const float* __restrict__ v, size_t sv,
-                              float* __restrict__ out, int M, int N,
-                              float norm) {
-  const int pair = blockIdx.z, i = blockIdx.y;
-  const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= N) return;
-  const size_t o = ((size_t)pair * M + i) * N + j;
-  out[o] = (C[o] + (u[(size_t)pair * su + i] + v[(size_t)pair * sv + j])) - norm;
+// Online log-sum-exp: the pair (m, z), standing for z exp(m), takes in the
+// pair (y, w) with one exponential: with d = y - m and e = exp(-|d|),
+// z = z e + w and m = y where d > 0, else z = z + w e.
+__device__ __forceinline__ void lse_merge(float& m, float& z, float y, float w) {
+  const float d = y - m;
+  const float e = exp_ftz(-fabsf(d));
+  const bool up = d > 0.f;
+  z = up ? fmaf(z, e, w) : fmaf(w, e, z);
+  m = up ? y : m;
 }
 
 // ---------------------------------------------------------------------------
-// Cluster kernels (sinkhorn_scaling, sinkhorn_bwd)
+// Cluster kernels
 
 constexpr int CS_MAX = 8;         // the largest cluster the plan asks for
 constexpr int KC_STREAMED = 33;   // columns a lane when streamed: N <= 1056
@@ -222,6 +172,15 @@ __host__ __device__ constexpr Layout bwd_layout(bool res, int band, int N) {
   const int NP = round4(N), w = res ? 2 * band * NP : 0, st = w + CW * NP;
   return {0, res ? band * NP : 0, w, st, st + CS_MAX * NP, 0, st + (CS_MAX + 2) * NP,
           st + (CS_MAX + 6) * NP, st + (CS_MAX + 6) * NP + 4 * round4(band)};
+}
+
+__host__ __device__ constexpr Layout log_layout(bool res, int band, int N, int kc) {
+  // C band (RES; rows VS = 32 kc apart, -inf past N) | the warps' column
+  // maxima, then sums (2 x CW x NP) | 2 parities x (max | sum) partials | v
+  // (VS, 0 past N) | log_nu | u, log_mu of the rows
+  const int NP = round4(N), VS = 32 * kc, w = res ? band * VS : 0, pt = w + 2 * CW * NP;
+  return {0, 0, w, 0, pt, 0, pt + 4 * NP, pt + 4 * NP + VS + NP,
+          pt + 4 * NP + VS + NP + 2 * round4(band)};
 }
 
 // The two halves of cluster.sync(): arrive (release) and wait (acquire), so
@@ -257,6 +216,25 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
+// The lane's entries of a row (columns lane + 32 k, k < KC) into xs, `pad` in
+// the slots past N (kv: the lane's columns): predicated loads off one base
+// pointer with immediate offsets, branch-free.
+template <int KC>
+__device__ __forceinline__ void load_lane_row(float (&xs)[KC], const float* row, int kv,
+                                              float pad) {
+  const float* p = row + threadIdx.x % 32;
+#pragma unroll
+  for (int k = 0; k < KC; ++k) xs[k] = k < kv ? p[32 * k] : pad;
+}
+
+template <int KC>
+__device__ __forceinline__ void store_lane_row(const float (&xs)[KC], float* row, int kv) {
+  float* p = row + threadIdx.x % 32;
+#pragma unroll
+  for (int k = 0; k < KC; ++k)
+    if (k < kv) p[32 * k] = xs[k];
+}
+
 // After the cluster barrier: copies the cluster's partial vectors `part` (NP
 // floats at the same offset in every block) into the local `stage` (cs x NP),
 // 16 bytes a load, and returns once every thread of the block has them; the
@@ -289,6 +267,20 @@ __device__ __forceinline__ void warps_to_columns(const float (&acc)[KC], float* 
     col[j] = s;
   }
   __syncthreads();
+}
+
+// The 16 warps' column (max, sum) pairs (warp w's at row w of wm and wz,
+// CW x NP each), merged in warp order into the block's pmax, psum.
+__device__ __forceinline__ void warps_to_column_pairs(const float* wm, const float* wz,
+                                                      float* pmax, float* psum, int N) {
+  const int NP = round4(N);
+  for (int j = threadIdx.x; j < N; j += CT) {
+    float m = -FLT_MAX, z = 0.f;
+#pragma unroll
+    for (int w = 0; w < CW; ++w) lse_merge(m, z, wm[w * NP + j], wz[w * NP + j]);
+    pmax[j] = m;
+    psum[j] = z;
+  }
 }
 
 // A column reduction over the cluster: the block's column sums into its
@@ -359,21 +351,6 @@ scaling_cluster_kernel(const float* __restrict__ C, const float* __restrict__ lo
   float x[KC], acc[KC];  // a row's entries, the lane's column sums
   float bq[B_REGS ? KC : 1];  // B_REGS: the lane's entries of b
 
-  // x = the lane's entries of a row, `pad` past N
-  auto load_row = [&](const float* row, float pad) {
-    const float* p = row + lane;
-#pragma unroll
-    for (int k = 0; k < KC; ++k) x[k] = k < kv ? p[32 * k] : pad;
-  };
-  // the lane's entries of row r into the band of K (RES; rows from kb) or
-  // K's workspace
-  auto keep_row = [&](float* kb, float* kp, int r) {
-    float* p = (RES ? kb + r * N : kp + (size_t)r * N) + lane;
-#pragma unroll
-    for (int k = 0; k < KC; ++k)
-      if (k < kv) p[32 * k] = x[k];
-  };
-
   for (int pair = cid; pair < B; pair += n_clusters) {
     const float* Cp = C + ((size_t)pair * M + i0) * N;
     float* Kp = K + ((size_t)pair * M + i0) * N;
@@ -394,7 +371,7 @@ scaling_cluster_kernel(const float* __restrict__ C, const float* __restrict__ lo
     for (int k = 0; k < KC; ++k) acc[k] = -INFINITY;
     for (int q = 0; q < nq; ++q) {
       const int r = warp + q * CW;
-      load_row(RES ? kb + r * N : Cp + (size_t)r * N, -INFINITY);
+      load_lane_row(x, RES ? kb + r * N : Cp + (size_t)r * N, kv, -INFINITY);
       float mx = -INFINITY;
 #pragma unroll
       for (int k = 0; k < KC; ++k) mx = fmaxf(mx, x[k]);
@@ -413,7 +390,7 @@ scaling_cluster_kernel(const float* __restrict__ C, const float* __restrict__ lo
     for (int k = 0; k < KC; ++k) acc[k] = 0.f;
     for (int q = 0; q < nq; ++q) {
       const int r = warp + q * CW;
-      load_row(RES ? kb + r * N : Cp + (size_t)r * N, 0.f);
+      load_lane_row(x, RES ? kb + r * N : Cp + (size_t)r * N, kv, 0.f);
       const float ui = su[r];
       const float* cm = cmax + lane;
 #pragma unroll
@@ -454,25 +431,21 @@ scaling_cluster_kernel(const float* __restrict__ C, const float* __restrict__ lo
         cp_async_wait_all();
         __syncthreads();
       }
-      if constexpr (B_REGS) {
-        const float* p = sb + lane;
-#pragma unroll
-        for (int k = 0; k < KC; ++k) bq[k] = k < kv ? p[32 * k] : 0.f;
-      }
+      if constexpr (B_REGS) load_lane_row(bq, sb, kv, 0.f);
 #pragma unroll
       for (int k = 0; k < KC; ++k) acc[k] = 0.f;
       for (int q = 0; q < nq; ++q) {
         const int r = warp + q * CW;
         if (rebuild) {  // K = exp(C + u + v)
-          load_row(RES ? kb + r * N : Cp + (size_t)r * N, 0.f);
+          load_lane_row(x, RES ? kb + r * N : Cp + (size_t)r * N, kv, 0.f);
           const float ui = su[r];
           const float* vp = sv + lane;
 #pragma unroll
           for (int k = 0; k < KC; ++k)
             if (k < kv) x[k] = expf((x[k] + ui) + vp[32 * k]);
-          keep_row(kb, Kp, r);
+          store_lane_row(x, RES ? kb + r * N : Kp + (size_t)r * N, kv);
         } else {
-          load_row(RES ? kb + r * N : Kp + (size_t)r * N, 0.f);
+          load_lane_row(x, RES ? kb + r * N : Kp + (size_t)r * N, kv, 0.f);
         }
         float s = 0.f;
         if constexpr (B_REGS) {
@@ -567,17 +540,6 @@ bwd_cluster_kernel(const float* __restrict__ C, const float* __restrict__ U,
   float x[KC], tq[KC], acc[KC];  // a row of C (then of G), Q gv (then Q gv + P gu), column sums
   float qv[V_REGS ? KC : 1], gv[V_REGS ? KC : 1], vp[V_REGS ? KC : 1];
 
-  auto load_row = [&](float (&xs)[KC], const float* row) {
-    const float* p = row + lane;
-#pragma unroll
-    for (int k = 0; k < KC; ++k) xs[k] = k < kv ? p[32 * k] : 0.f;
-  };
-  auto store_row = [&](const float (&xs)[KC], float* row) {
-    float* p = row + lane;
-#pragma unroll
-    for (int k = 0; k < KC; ++k)
-      if (k < kv) p[32 * k] = xs[k];
-  };
   // the warps' column sums, merged over the cluster: sgv = sign * their sum;
   // `between` runs while the cluster gathers at the barrier
   auto exchange = [&](float sign, auto between) {
@@ -601,8 +563,8 @@ bwd_cluster_kernel(const float* __restrict__ C, const float* __restrict__ U,
     for (int k = 0; k < KC; ++k) acc[k] = 0.f;
     for (int q = 0; q < nq; ++q) {
       const int r = warp + q * CW;
-      load_row(x, gp + (size_t)r * N);
-      store_row(x, RES ? gmat + r * NP : Gp + (size_t)r * N);
+      load_lane_row(x, gp + (size_t)r * N, kv, 0.f);
+      store_lane_row(x, RES ? gmat + r * NP : Gp + (size_t)r * N, kv);
       float s = 0.f;
 #pragma unroll
       for (int k = 0; k < KC; ++k) {
@@ -612,8 +574,8 @@ bwd_cluster_kernel(const float* __restrict__ C, const float* __restrict__ U,
       s = warp_sum(s);
       if (lane == 0) sgu0[r] = s;
       if constexpr (RES) {
-        load_row(x, Cp + (size_t)r * N);
-        store_row(x, cmat + r * NP);
+        load_lane_row(x, Cp + (size_t)r * N, kv, 0.f);
+        store_lane_row(x, cmat + r * NP, kv);
       }
     }
     // the duals of reverse step s (iteration t = T - 1 - s) into shared memory
@@ -636,15 +598,15 @@ bwd_cluster_kernel(const float* __restrict__ C, const float* __restrict__ U,
     for (int s = 0; s < T; ++s) {
       __syncthreads();
       if constexpr (V_REGS) {
-        load_row(qv, sqv);
-        load_row(gv, sgv);
-        load_row(vp, svp);
+        load_lane_row(qv, sqv, kv, 0.f);
+        load_lane_row(gv, sgv, kv, 0.f);
+        load_lane_row(vp, svp, kv, 0.f);
       }
 #pragma unroll
       for (int k = 0; k < KC; ++k) acc[k] = 0.f;
       for (int q = 0; q < nq; ++q) {
         const int r = warp + q * CW;
-        load_row(x, RES ? cmat + r * NP : Cp + (size_t)r * N);
+        load_lane_row(x, RES ? cmat + r * NP : Cp + (size_t)r * N, kv, 0.f);
         // Q gv = exp((C + u_t) + (v_t - log_nu)) gv; gu = [s == 0] gu_T - rowsum
         const float ui = su[r];
         const float *qp = sqv + lane, *gvp = sgv + lane, *vpp = svp + lane;
@@ -668,10 +630,10 @@ bwd_cluster_kernel(const float* __restrict__ C, const float* __restrict__ U,
           acc[k] += p;
         }
         float* grow = RES ? gmat + r * NP : Gp + (size_t)r * N;
-        load_row(x, grow);
+        load_lane_row(x, grow, kv, 0.f);
 #pragma unroll
         for (int k = 0; k < KC; ++k) x[k] = x[k] - tq[k];
-        store_row(x, grow);
+        store_lane_row(x, grow, kv);
       }
       exchange(-1.f, [&] { stage_step(s + 1); });
     }
@@ -679,9 +641,196 @@ bwd_cluster_kernel(const float* __restrict__ C, const float* __restrict__ U,
     if constexpr (RES)
       for (int q = 0; q < nq; ++q) {
         const int r = warp + q * CW;
-        load_row(x, gmat + r * NP);
-        store_row(x, Gp + (size_t)r * N);
+        load_lane_row(x, gmat + r * NP, kv, 0.f);
+        store_lane_row(x, Gp + (size_t)r * N, kv);
       }
+    __syncthreads();
+  }
+  cluster.sync();  // no block leaves while another may still read its partials
+}
+
+// Exact log-domain solve; one cluster per pair at a time, one pass over the
+// band an iteration. Warp w takes the band rows w, w + 16, ...; lane l the
+// columns l + 32 k, k < KC, two rows at a time (KC <= 16) so that their warp
+// reductions interleave. A row goes into registers once per iteration (RES:
+// from the band of C in shared memory, copied in once per pair with rows
+// padded by -inf to 32 KC, so that no load of the iteration is predicated;
+// streamed: from device memory), u_i comes from two warp reductions, and the
+// lane folds C_ij + u_i into its columns' (max, sum) pairs (lse_merge): in
+// registers for KC <= 16, else in its own slots of the warp's row of the
+// column vectors.
+template <int N>
+struct Rows {
+  static constexpr int value = N;
+};
+
+template <bool RES, int KC>
+__global__ void __launch_bounds__(CT, 1)
+log_cluster_kernel(const float* __restrict__ C, const float* __restrict__ log_mu,
+                   const float* __restrict__ log_nu, float* __restrict__ out,
+                   float* __restrict__ U, float* __restrict__ V, int B, int M, int N,
+                   int band, int n_iters, int stash, float norm) {
+  constexpr bool COL_REGS = KC <= 16;
+  constexpr int ROWS_IN_FLIGHT = KC <= 16 ? 2 : 1;  // a warp's rows taken at once
+  constexpr int VS = 32 * KC;                       // a padded row
+  cg::cluster_group cluster = cg::this_cluster();
+  const int cs = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  const int cid = blockIdx.x / cs, n_clusters = gridDim.x / cs;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int i0 = rank * band;
+  const int rows = max(0, min(band, M - i0));
+  const int NP = round4(N);
+  const int nq = rows > warp ? (rows - warp + CW - 1) / CW : 0;
+  const int kv = (N - lane + 31) / 32;
+  // the block's share of the columns of v that it stores: [j0, j1)
+  const int vshare = (N + cs - 1) / cs, j0 = rank * vshare, j1 = min(N, j0 + vshare);
+  extern __shared__ __align__(16) float csm[];
+  const Layout L = log_layout(RES, band, N, KC);
+  float* mat = csm + L.mat;      // RES: the band of C, row r at mat + r VS
+  float* wm = csm + L.wsum;      // CW x NP: the warps' column maxima
+  float* wz = wm + CW * NP;      // CW x NP: their sums
+  float* part = csm + L.part;    // 2 parities x (max | sum)
+  float* sv = csm + L.vec;       // VS: v, 0 past N
+  float* slognu = sv + VS;       // NP
+  float* su = csm + L.rowv;      // band: u
+  float* slogmu = su + round4(band);
+  float* wml = wm + warp * NP + lane;  // the lane's slots of its warp's row
+  float* wzl = wz + warp * NP + lane;
+  const float* vl = sv + lane;
+  int par = 0;
+  float x[KC];                                         // a row of C
+  float cm[COL_REGS ? KC : 1], cz[COL_REGS ? KC : 1];  // the lane's column (max, sum)
+  // the lane's entries of band row r (RES: all KC slots, -inf past N)
+  auto row_of = [&](float (&xs)[KC], const float* Cp, int r) {
+    if constexpr (RES) {
+#pragma unroll
+      for (int k = 0; k < KC; ++k) xs[k] = mat[r * VS + lane + 32 * k];
+    } else {
+      load_lane_row(xs, Cp + (size_t)r * N, kv, -INFINITY);
+    }
+  };
+
+  for (int pair = cid; pair < B; pair += n_clusters) {
+    const float* Cp = C + ((size_t)pair * M + i0) * N;
+    float* Up = U + (size_t)pair * (stash ? n_iters : 1) * M + i0;
+    float* Vp = V + (size_t)pair * (stash ? n_iters : 1) * N;
+    if constexpr (RES)  // each warp copies the rows it takes
+      for (int q = 0; q < nq; ++q) {
+        const int r = warp + q * CW;
+        load_lane_row(x, Cp + (size_t)r * N, kv, -INFINITY);
+#pragma unroll
+        for (int k = 0; k < KC; ++k) mat[r * VS + lane + 32 * k] = x[k];
+      }
+    for (int j = tid; j < VS; j += CT) sv[j] = 0.f;  // v_0
+    for (int j = tid; j < N; j += CT) slognu[j] = log_nu[(size_t)pair * N + j];
+    for (int i = tid; i < rows; i += CT) slogmu[i] = log_mu[(size_t)pair * M + i0 + i];
+    __syncthreads();
+
+    for (int t = 0; t < n_iters; ++t) {
+      // (max, sum) = (-FLT_MAX, 0): finite, so that a -INFINITY entry folds in
+      // as exp(-inf) = 0
+#pragma unroll
+      for (int k = 0; k < KC; ++k) {
+        if constexpr (COL_REGS) {
+          cm[k] = -FLT_MAX;
+          cz[k] = 0.f;
+        } else if (k < kv) {
+          wml[32 * k] = -FLT_MAX;
+          wzl[32 * k] = 0.f;
+        }
+      }
+      // NR rows of the warp from its q-th: u_r = log_mu_r - LSE_j(C_rj + v_j)
+      // for each (their reductions interleave), then their terms C_rj + u_r
+      // folded into the lane's columns in row order
+      auto take_rows = [&](auto nr, int q) {
+        constexpr int NR = decltype(nr)::value;
+        float xs[NR][KC], mx[NR], s[NR];
+#pragma unroll
+        for (int n = 0; n < NR; ++n) {
+          row_of(xs[n], Cp, warp + (q + n) * CW);
+          mx[n] = -INFINITY;
+          s[n] = 0.f;
+        }
+#pragma unroll
+        for (int k = 0; k < KC; ++k)
+#pragma unroll
+          for (int n = 0; n < NR; ++n) mx[n] = fmaxf(mx[n], xs[n][k] + vl[32 * k]);
+#pragma unroll
+        for (int n = 0; n < NR; ++n) mx[n] = warp_max(mx[n]);
+#pragma unroll
+        for (int k = 0; k < KC; ++k)
+#pragma unroll
+          for (int n = 0; n < NR; ++n) s[n] += exp_ftz((xs[n][k] + vl[32 * k]) - mx[n]);
+#pragma unroll
+        for (int n = 0; n < NR; ++n) {
+          const int r = warp + (q + n) * CW;
+          const float ui = slogmu[r] - (logf(warp_sum(s[n])) + mx[n]);
+          if (lane == 0) su[r] = ui;
+#pragma unroll
+          for (int k = 0; k < KC; ++k) {
+            if constexpr (COL_REGS) {
+              lse_merge(cm[k], cz[k], xs[n][k] + ui, 1.f);
+            } else {
+              float m = k < kv ? wml[32 * k] : -FLT_MAX, z = k < kv ? wzl[32 * k] : 0.f;
+              lse_merge(m, z, xs[n][k] + ui, 1.f);
+              if (k < kv) {
+                wml[32 * k] = m;
+                wzl[32 * k] = z;
+              }
+            }
+          }
+        }
+      };
+      int q = 0;
+      for (; q + ROWS_IN_FLIGHT <= nq; q += ROWS_IN_FLIGHT) take_rows(Rows<ROWS_IN_FLIGHT>{}, q);
+      if constexpr (ROWS_IN_FLIGHT == 2)
+        if (q < nq) take_rows(Rows<1>{}, q);
+      // the band's column (max, sum), merged over the warps, then over the
+      // cluster's blocks in rank order
+      float* pp = part + par * 2 * NP;
+      if constexpr (COL_REGS) {
+        store_lane_row(cm, wm + warp * NP, kv);
+        store_lane_row(cz, wz + warp * NP, kv);
+      }
+      __syncthreads();
+      warps_to_column_pairs(wm, wz, pp, pp + NP, N);
+      cluster_arrive();
+      if (stash)
+        for (int i = tid; i < rows; i += CT) Up[(size_t)t * M + i] = su[i];
+      cluster_wait();
+      // v_j = log_nu_j - LSE_i(C_ij + u_i): the blocks' pairs read over DSMEM
+      for (int j = tid; j < N; j += CT) {
+        float m = -FLT_MAX, z = 0.f;
+#pragma unroll
+        for (int q = 0; q < CS_MAX; ++q)
+          if (q < cs) {
+            const float* rp = cluster.map_shared_rank(pp, q);
+            lse_merge(m, z, rp[j], rp[NP + j]);
+          }
+        const float vj = slognu[j] - (logf(z) + m);
+        sv[j] = vj;
+        if (stash && j >= j0 && j < j1) Vp[(size_t)t * N + j] = vj;
+      }
+      par ^= 1;
+      __syncthreads();
+    }
+
+    // output (C + (u + v)) - norm over the band; without the stash, the last
+    // duals into U (B, M) and V (B, N)
+    float* op = out + ((size_t)pair * M + i0) * N;
+    for (int q = 0; q < nq; ++q) {
+      const int r = warp + q * CW;
+      row_of(x, Cp, r);
+      const float ui = su[r];
+#pragma unroll
+      for (int k = 0; k < KC; ++k) x[k] = (x[k] + (ui + vl[32 * k])) - norm;
+      store_lane_row(x, op + (size_t)r * N, kv);
+    }
+    if (!stash) {
+      for (int i = tid; i < rows; i += CT) Up[i] = su[i];
+      for (int j = j0 + tid; j < j1; j += CT) Vp[j] = sv[j];
+    }
     __syncthreads();
   }
   cluster.sync();  // no block leaves while another may still read its partials
@@ -691,6 +840,8 @@ using ScalingKernel = void (*)(const float*, const float*, const float*, float*,
                                int, int, int, int, int, int, float);
 using BwdKernel = void (*)(const float*, const float*, const float*, const float*,
                            const float*, const float*, float*, int, int, int, int, int);
+using LogKernel = void (*)(const float*, const float*, const float*, float*, float*, float*,
+                           int, int, int, int, int, int, float);
 
 // The instantiations the plan can name (kc: columns a lane); nullptr for any
 // other.
@@ -714,6 +865,18 @@ BwdKernel bwd_kernel_for(int res, int kc) {
     case 13: return bwd_cluster_kernel<true, 13>;
     case 16: return bwd_cluster_kernel<true, 16>;
     case KC_STREAMED: return bwd_cluster_kernel<true, KC_STREAMED>;
+  }
+  return nullptr;
+}
+
+LogKernel log_kernel_for(int res, int kc) {
+  if (!res) return kc == KC_STREAMED ? log_cluster_kernel<false, KC_STREAMED> : nullptr;
+  switch (kc) {
+    case 4: return log_cluster_kernel<true, 4>;
+    case 8: return log_cluster_kernel<true, 8>;
+    case 13: return log_cluster_kernel<true, 13>;
+    case 16: return log_cluster_kernel<true, 16>;
+    case KC_STREAMED: return log_cluster_kernel<true, KC_STREAMED>;
   }
   return nullptr;
 }
@@ -762,42 +925,39 @@ int launch_clusters(Kernel kernel, int cs, int n_clusters, int smem, cudaStream_
   return (int)cudaLaunchKernelEx(&cfg, kernel, args...);
 }
 
-}  // namespace
-
-extern "C" {
-
-// Rows per block of the log kernels; the Python wrapper sizes their
-// partial-sum workspace with it.
-int sinkhorn_rows_per_block() { return R; }
-
-// A cluster kernel of the plan (kind 0: scaling with kc columns a lane, 1:
-// sweep; resident or streamed): info[0] = the clusters of `cs` blocks with `smem` bytes each
-// that the card holds at once, info[1] = registers per thread, info[2] =
-// local (spill) bytes per thread. Returns 0, -1 for a scaling kernel that is
-// not instantiated, or a CUDA error.
-int sinkhorn_cluster_info(int kind, int res, int kc, int cs, int smem, int* info) {
+// sinkhorn_cluster_info for one instantiation (nullptr: -1).
+template <typename Kernel>
+int cluster_info(Kernel kernel, int cs, int smem, int* info) {
+  if (!kernel) return -1;
   cudaLaunchAttribute attr;
   cudaLaunchConfig_t cfg = cluster_config(cs, 1, smem, nullptr, &attr);
-  cudaFuncAttributes fa;
-  int fit;
-  cudaError_t e;
-  if (kind == 0) {
-    ScalingKernel k = scaling_kernel_for(res, kc);
-    if (!k) return -1;
-    fit = prepare(k, cs, smem, &cfg);
-    e = cudaFuncGetAttributes(&fa, k);
-  } else {
-    BwdKernel k = bwd_kernel_for(res, kc);
-    if (!k) return -1;
-    fit = prepare(k, cs, smem, &cfg);
-    e = cudaFuncGetAttributes(&fa, k);
-  }
+  const int fit = prepare(kernel, cs, smem, &cfg);
   if (fit < 0) return -fit;
+  cudaFuncAttributes fa;
+  const cudaError_t e = cudaFuncGetAttributes(&fa, kernel);
   if (e != cudaSuccess) return (int)e;
   info[0] = fit;
   info[1] = fa.numRegs;
   info[2] = (int)fa.localSizeBytes;
   return 0;
+}
+
+}  // namespace
+
+extern "C" {
+
+// A cluster kernel of the plan (kind 0: scaling, 1: sweep, 2: log domain;
+// resident or streamed; kc columns a lane): info[0] = the clusters of `cs`
+// blocks with `smem` bytes each that the card holds at once, info[1] =
+// registers per thread, info[2] = local (spill) bytes per thread. Returns 0,
+// -1 for a kernel that is not instantiated, or a CUDA error.
+int sinkhorn_cluster_info(int kind, int res, int kc, int cs, int smem, int* info) {
+  switch (kind) {
+    case 0: return cluster_info(scaling_kernel_for(res, kc), cs, smem, info);
+    case 1: return cluster_info(bwd_kernel_for(res, kc), cs, smem, info);
+    case 2: return cluster_info(log_kernel_for(res, kc), cs, smem, info);
+  }
+  return -1;
 }
 
 // Whole scaling-domain solve for B pairs in one cluster launch on `stream`.
@@ -819,46 +979,21 @@ int sinkhorn_scaling(const float* C, const float* log_mu, const float* log_nu,
                          log_mu, log_nu, out, K, B, M, N, band, n_iters, absorb_every, norm);
 }
 
-// Exact log-domain solve, n_iters >= 1 iterations, all launches on `stream`.
-// stash == 0: U (B, M), V (B, N) hold the running duals.
+// Exact log-domain solve, n_iters iterations, in one cluster launch on
+// `stream`. C (B, M, N); log_mu (B, M); log_nu (B, N); out (B, M, N).
+// stash == 0: U (B, M), V (B, N) receive the last duals.
 // stash != 0: U (B, n_iters, M), V (B, n_iters, N) receive every u_t, v_t.
-// Workspace: part0, part1 (B, ceil(M / R), N). Returns 0, -1 when N is too
-// wide for the shared-memory tile, -2 for no iterations, or the first
-// non-zero cudaGetLastError() code.
-int sinkhorn_log(const float* C, const float* log_mu, const float* log_nu,
-                 float* out, float* U, float* V, float* part0, float* part1,
-                 int B, int M, int N, int n_iters, int stash, float norm,
-                 void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const size_t smem = (size_t)(R * N + N + R) * sizeof(float);
-  if (smem > 227 * 1024) return -1;
+// Return codes as sinkhorn_scaling's.
+int sinkhorn_log(const float* C, const float* log_mu, const float* log_nu, float* out,
+                 float* U, float* V, int B, int M, int N, int n_iters, int stash, float norm,
+                 int cs, int resident, int n_clusters, int kc, int smem, void* stream) {
+  LogKernel kernel = log_kernel_for(resident, kc);
+  if (!kernel || N > 32 * kc) return -1;
   if (n_iters < 1) return -2;
-  cudaError_t e;
-  if ((e = cudaFuncSetAttribute(log_row_kernel,
-                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                (int)smem)) != cudaSuccess) return (int)e;
-  const int nrb = (M + R - 1) / R;
-  const dim3 grid_rows(nrb, B);
-  const int ct = 256;
-  const dim3 grid_cols((N + ct - 1) / ct, B);
-  const size_t su = stash ? (size_t)n_iters * M : (size_t)M;
-  const size_t sv = stash ? (size_t)n_iters * N : (size_t)N;
-  const float* v_in = nullptr;  // v_0 = 0
-  float* u_out = U;
-  float* v_out = V;
-  for (int t = 0; t < n_iters; ++t) {
-    if (stash) {
-      u_out = U + (size_t)t * M;
-      v_out = V + (size_t)t * N;
-    }
-    log_row_kernel<<<grid_rows, THREADS, smem, st>>>(C, log_mu, v_in, sv, u_out,
-                                                    su, part0, part1, M, N);
-    log_col_kernel<<<grid_cols, ct, 0, st>>>(part0, part1, log_nu, v_out, sv, N, nrb);
-    v_in = v_out;
-  }
-  output_kernel<<<dim3((N + ct - 1) / ct, M, B), ct, 0, st>>>(
-      C, u_out, su, v_out, sv, out, M, N, norm);
-  return (int)cudaGetLastError();
+  const int band = (M + cs - 1) / cs;
+  if (smem != (int)sizeof(float) * log_layout(resident != 0, band, N, kc).total) return -5;
+  return launch_clusters(kernel, cs, n_clusters, smem, static_cast<cudaStream_t>(stream), C,
+                         log_mu, log_nu, out, U, V, B, M, N, band, n_iters, stash, norm);
 }
 
 // Reverse sweep over the T stashed iterations in one cluster launch on

@@ -19,12 +19,16 @@ A CPU tensor takes the plain versions: `log_sinkhorn_mxu` / `log_sinkhorn`
 without grad, autograd through `log_sinkhorn` at the effective count under
 grad. A CUDA tensor launches a kernel or raises.
 
-`sinkhorn_scaling` and `sinkhorn_bwd` run on thread-block clusters, one
-cluster per pair matrix at a time (see the source's header). `cluster_plan`
-chooses their launch here, where the CPU tests reach it: the cluster size,
-whether the matrix stays in shared memory (resident) or streams from device
-memory, the number of persistent clusters, the columns a lane holds (the
-kernel instantiation) and the shared bytes.
+All three kernels run on thread-block clusters, one cluster per pair matrix
+at a time, one launch per call (see the source's header): the cluster's
+blocks split the rows into bands, warps own rows, and the column reductions
+meet over distributed shared memory in a fixed order, so two runs give the
+same bits. `cluster_plan` chooses their launch here, where the CPU tests
+reach it: the cluster size, whether the band stays in shared memory
+(resident) or streams from device memory, the number of persistent clusters,
+the columns a lane holds (the kernel instantiation) and the shared bytes.
+The kernels take N <= 1056 (33 columns a lane); a wider matrix raises
+`ValueError`.
 """
 
 import ctypes
@@ -44,9 +48,8 @@ ALGORITHMS = ("scaling", "log")
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "sinkhorn_scaling": (_I, [_P] * 5 + [_I] * 5 + [_F] + [_I] * 5 + [_P]),
-    "sinkhorn_log": (_I, [_P] * 8 + [_I] * 5 + [_F, _P]),
+    "sinkhorn_log": (_I, [_P] * 6 + [_I] * 5 + [_F] + [_I] * 5 + [_P]),
     "sinkhorn_bwd": (_I, [_P] * 7 + [_I] * 9 + [_P]),
-    "sinkhorn_rows_per_block": (_I, []),
     "sinkhorn_cluster_info": (_I, [_I] * 5 + [_P]),
 }
 
@@ -58,9 +61,11 @@ CLUSTER_SIZES = (1, 2, 4, 8)  # blocks (SMs) a cluster, up to the portable maxim
 COLUMN_SLOTS = (4, 8, 13, 16, 33)  # columns a lane: N <= 32 x 33
 SMEM_BYTES = 227 * 1024  # a block's shared memory on an H100
 L2_BUDGET_BYTES = 40e6  # streamed matrices in flight, inside the 50 MB L2
+# the cluster kernels, by their code in `sinkhorn_cluster_info`
+CLUSTER_KINDS = ("scaling", "bwd", "log")
 
-# kernel launches since the last reset, one per solve or sweep (each a
-# sequence of CUDA launches inside one C function of the source)
+# kernel launches since the last reset, one per solve or sweep (one cluster
+# launch each)
 launches = {"sinkhorn_scaling": 0, "sinkhorn_log": 0, "sinkhorn_log_stash": 0,
             "sinkhorn_bwd": 0}
 
@@ -83,31 +88,28 @@ def _check(couplings, log_mu, log_nu, *more):
     return B, M, N
 
 
-def _lib_and_partials(couplings):
-    lib = cuda_build.load("sinkhorn_cuda", _SIGNATURES)
-    B, M, N = couplings.shape
-    nrb = -(-M // lib.sinkhorn_rows_per_block())
-    return lib, couplings.new_empty((B, nrb, N))
-
-
 def _raise_on(rc, name):
     if rc != 0:
-        raise RuntimeError(f"{name} failed (code {rc}; -1: N too wide for the "
-                           "shared-memory tile or no kernel for the plan, -2: no "
+        raise RuntimeError(f"{name} failed (code {rc}; -1: no kernel for the plan, -2: no "
                            "iterations, -3: the cluster cannot be scheduled, -4: more "
                            "clusters than fit at once, -5: plan and kernel layout "
                            "differ; positive: a CUDA error)")
 
 
-def _smem_floats(kind, resident, band, N):
-    """Shared floats of one block (the source's scaling_layout, bwd_layout):
-    the band (K; C and G) when resident, the warps' column sums, the gathered
-    partials, the partials and column vectors, and row vectors."""
+def _smem_floats(kind, resident, band, N, kc):
+    """Shared floats of one block (the source's scaling_layout, bwd_layout,
+    log_layout; kc: columns a lane): the band (K; C and G; C) when resident,
+    the warps' column vectors, the gathered partials, the partials and column
+    vectors, and row vectors."""
     NP = _round4(N)
     fixed = CLUSTER_WARPS + CLUSTER_SIZES[-1]
     if kind == "scaling":  # the band as a span; 2 x (max, sum), column (max, sum),
         # b v log_nu; u a log_mu
         return (_round4(band * N + 3) if resident else 0) + (fixed + 9) * NP + 3 * _round4(band)
+    if kind == "log":  # the band in rows of 32 kc; the warps' (max, sum) vectors;
+        # 2 x (max, sum), v (32 kc), log_nu; u log_mu
+        return ((band * 32 * kc if resident else 0) + (2 * CLUSTER_WARPS + 5) * NP + 32 * kc
+                + 2 * _round4(band))
     # 2 parities, gv (v_t - log_nu) v_{t-1} log_nu; u_t (u_t - log_mu) gu_T log_mu
     return (2 * band * NP if resident else 0) + (fixed + 6) * NP + 4 * _round4(band)
 
@@ -117,13 +119,13 @@ def _round4(x):
 
 
 def cluster_plan(kind, B, M, N, capacity=None):
-    """Launch plan of the cluster kernel `kind` ("scaling" or "bwd") for B
-    pair matrices of M x N.
+    """Launch plan of the cluster kernel `kind` ("scaling", "bwd" or "log")
+    for B pair matrices of M x N.
 
     The cluster splits the rows into `cluster_size` bands. Resident where the
-    band (K for scaling; C and G for the sweep) fits the block's shared
-    memory: with the smallest such cluster, so that the most pairs are in
-    flight. Else streamed from device memory, with up to 8 blocks a cluster
+    band (K for scaling; C and G for the sweep; C for the log domain) fits the
+    block's shared memory: with the smallest such cluster, so that the most
+    pairs are in flight. Else streamed from device memory, with up to 8 blocks a cluster
     (two rows a warp at least) and persistent clusters few enough that the
     matrices in flight stay inside the L2 budget. `capacity` is the number of
     such clusters the card holds at once (`sinkhorn_cluster_info`); None on
@@ -133,29 +135,29 @@ def cluster_plan(kind, B, M, N, capacity=None):
     column_slots (the columns a lane holds), smem_bytes, workspace
     ({name: shape}).
     """
-    if kind not in ("scaling", "bwd"):
+    if kind not in CLUSTER_KINDS:
         raise ValueError(f"unknown cluster kernel {kind!r}")
+    # columns a lane: resident the smallest instantiation, streamed the largest
+    kc = next((k for k in COLUMN_SLOTS if 32 * k >= N), None)
+    if kc is None:
+        raise ValueError(f"sinkhorn_{kind} takes N <= {32 * COLUMN_SLOTS[-1]}, got {N}")
 
     def fits(cs):
-        return 4 * _smem_floats(kind, True, -(-M // cs), N) <= SMEM_BYTES
+        return 4 * _smem_floats(kind, True, -(-M // cs), N, kc) <= SMEM_BYTES
 
     cs = next((c for c in CLUSTER_SIZES if fits(c)), None)
     resident = cs is not None
     if not resident:  # two rows a warp at least
         cs = max(1, min(CLUSTER_SIZES[-1], M // (2 * CLUSTER_WARPS)))
+        kc = COLUMN_SLOTS[-1]
     band = -(-M // cs)
-    smem = 4 * _smem_floats(kind, resident, band, N)
+    smem = 4 * _smem_floats(kind, resident, band, N, kc)
     if smem > SMEM_BYTES:
         raise ValueError(f"sinkhorn_{kind}: N = {N} too wide for a block's shared memory")
-    # columns a lane: resident the smallest instantiation, streamed the largest
-    kc = next((k for k in COLUMN_SLOTS if 32 * k >= N), None)
-    if kc is None:
-        raise ValueError(f"sinkhorn_{kind} takes N <= {32 * COLUMN_SLOTS[-1]}, got {N}")
-    kc = kc if resident else COLUMN_SLOTS[-1]
     if resident:
         n = B
-    else:  # K for scaling; C and G for the sweep
-        in_flight = (1 if kind == "scaling" else 2) * 4 * M * N
+    else:  # K for scaling; C and G for the sweep; C for the log domain
+        in_flight = (2 if kind == "bwd" else 1) * 4 * M * N
         n = max(1, min(B, int(L2_BUDGET_BYTES // in_flight)))
     if capacity is not None:
         n = min(n, capacity)
@@ -173,7 +175,7 @@ def kernel_plan(kind, B, M, N, device_index=0):
     plan = cluster_plan(kind, B, M, N)
     info = (ctypes.c_int * 3)()
     with torch.cuda.device(device_index):
-        rc = lib.sinkhorn_cluster_info(0 if kind == "scaling" else 1, int(plan["resident"]),
+        rc = lib.sinkhorn_cluster_info(CLUSTER_KINDS.index(kind), int(plan["resident"]),
                                        plan["column_slots"], plan["cluster_size"],
                                        plan["smem_bytes"], info)
     _raise_on(rc, f"sinkhorn_{kind} plan")
@@ -210,13 +212,13 @@ def _sinkhorn_log(couplings, log_mu, log_nu, n_iters, norm, stash):
     B, M, N = _check(couplings, log_mu, log_nu)
     if n_iters <= 0:
         raise ValueError("n_iters must be positive")
-    lib, part0 = _lib_and_partials(couplings)
-    part1 = torch.empty_like(part0)
+    lib = cuda_build.load("sinkhorn_cuda", _SIGNATURES)
+    plan = kernel_plan("log", B, M, N, couplings.device.index or 0)
     out = torch.empty_like(couplings)
     U = couplings.new_empty((B, n_iters, M) if stash else (B, M))
     V = couplings.new_empty((B, n_iters, N) if stash else (B, N))
-    ptrs = [t.data_ptr() for t in (couplings, log_mu, log_nu, out, U, V, part0, part1)]
-    rc = lib.sinkhorn_log(*ptrs, B, M, N, n_iters, int(stash), float(norm),
+    ptrs = [t.data_ptr() for t in (couplings, log_mu, log_nu, out, U, V)]
+    rc = lib.sinkhorn_log(*ptrs, B, M, N, n_iters, int(stash), float(norm), *_plan_args(plan),
                           torch.cuda.current_stream(couplings.device).cuda_stream)
     name = "sinkhorn_log_stash" if stash else "sinkhorn_log"
     _raise_on(rc, name)

@@ -1,11 +1,14 @@
-"""The cluster kernels `sinkhorn_scaling` and `sinkhorn_bwd` on the card, and
-their launch plan on the CPU.
+"""The cluster kernels `sinkhorn_scaling`, `sinkhorn_log` (with and without
+the stash) and `sinkhorn_bwd` on the card, and their launch plan on the CPU.
 
-The `cuda`-marked tests hold both kernels against their plain versions
-(`ops/sinkhorn.py::log_sinkhorn_mxu`, `log_sinkhorn_bwd`) at ragged shapes on
-both sides of the residency threshold (401 x 401 stays on chip, 1025 x 1025
-streams from L2): probabilities 2e-4 (5e-4 at score scale 400), dscores 2e-4
-of max(1, max |reference|), dalpha 2e-3; two runs give the same bits; one
+The `cuda`-marked tests hold the kernels against their plain versions
+(`ops/sinkhorn.py::log_sinkhorn_mxu`, `log_sinkhorn_stash`,
+`log_sinkhorn_bwd`) at ragged shapes on both sides of the residency threshold
+(401 x 401 stays on chip, 1025 x 1025 streams from L2): probabilities 2e-4
+(5e-4 at score scale 400), stashed duals 1e-4 (at score scale 400, 1e-4 of
+max(1, max |dual|): the duals reach ~1e3 there, where one float32 ulp is
+6e-5-1.2e-4), dscores 2e-4 of max(1, max |reference|), dalpha 2e-3; two runs
+give the same bits, and so do the log kernel with and without the stash; one
 launch-counter step per call. They skip without a GPU. The plan tests run
 anywhere. The file imports neither JAX nor the JAX package:
 
@@ -27,6 +30,7 @@ SOURCE = Path(sc.__file__).resolve().parent / "csrc" / "sinkhorn_cuda.cu"
 # score shapes (B, M, N) and scales; the couplings add the dustbin row and column
 SHAPES = [((3, 33, 29), 4.0), ((2, 127, 127), 4.0), ((4, 401, 401), 4.0),
           ((2, 401, 333), 4.0), ((2, 1025, 1025), 4.0), ((2, 40, 40), 400.0)]
+SINKHORN_DUAL_TOL = 1e-4  # stashed duals u_t, v_t (f32 reduction order over 100 iterations)
 
 
 @pytest.fixture
@@ -92,7 +96,32 @@ class TestClusterKernels:
             assert abs(float(ga) - float(ga_ref)) < 2e-3 * max(1.0, abs(float(ga_ref)))
         assert float(z_k.detach().max()) < math.log(M + N) + 1.0
 
-    @pytest.mark.parametrize("kind", ["scaling", "bwd"])
+    @pytest.mark.parametrize("shape,scale", SHAPES)
+    def test_log_matches_plain(self, cuda, shape, scale):
+        """`sinkhorn_log` and `sinkhorn_log_stash` against the plain stashed
+        forward: the output, every stashed dual, and the last duals that the
+        solve without the stash returns; the same bits with and without the
+        stash and on two runs."""
+        scores, _ = _scores(cuda, shape, scale)
+        C, log_mu, log_nu, norm = ts.augment_couplings(scores, 1.0)
+        z_ref, U_ref, V_ref = ts.log_sinkhorn_stash(C, log_mu, log_nu, 100)
+        before = dict(sc.launches)
+        z, U_last, V_last = sc._sinkhorn_log(C, log_mu, log_nu, 100, norm, False)
+        z_st, U, V = sc.sinkhorn_log_stash(C, log_mu, log_nu, 100, norm)
+        assert sc.launches["sinkhorn_log"] == before["sinkhorn_log"] + 1
+        assert sc.launches["sinkhorn_log_stash"] == before["sinkhorn_log_stash"] + 1
+        assert bool(torch.isfinite(z).all())
+        assert _prob_err(z, z_ref - norm) < (5e-4 if scale > 100 else 2e-4)
+        dual_tol = SINKHORN_DUAL_TOL * (max(1.0, float(U_ref.abs().max()),
+                                            float(V_ref.abs().max())) if scale > 100 else 1.0)
+        assert float((U - U_ref).abs().max()) < dual_tol
+        assert float((V - V_ref).abs().max()) < dual_tol
+        assert torch.equal(z, z_st)
+        assert torch.equal(U_last, U[:, -1]) and torch.equal(V_last, V[:, -1])
+        assert torch.equal(z, sc.sinkhorn_log(C, log_mu, log_nu, 100, norm))
+        assert sc.launches["sinkhorn_log"] == before["sinkhorn_log"] + 2
+
+    @pytest.mark.parametrize("kind", ["scaling", "bwd", "log"])
     def test_plans_schedule(self, cuda, kind):
         """At the paths' shapes the runtime fits the planned clusters; the
         resident kernels (the training and validation shape) keep every value
@@ -114,30 +143,32 @@ class TestPlan:
     instantiations, and to the shapes of both paths."""
 
     @pytest.mark.parametrize("kind,cs,band,smem", [
-        ("scaling", 4, 101, 216592), ("bwd", 8, 51, 214144)])
+        ("scaling", 4, 101, 216592), ("bwd", 8, 51, 214144), ("log", 4, 101, 230352)])
     def test_resident_at_401(self, kind, cs, band, smem):
         """The smallest cluster that holds the band on chip: K in 4 SMs' shared
-        memory; C and G in 8 SMs' shared memory for the sweep."""
+        memory; C and G in 8 SMs' shared memory for the sweep; C, in rows of
+        32 x 13 floats, in 4 SMs' for the log domain."""
         plan = sc.cluster_plan(kind, 80, 401, 401)
         assert (plan["cluster_size"], plan["band"], plan["resident"]) == (cs, band, True)
         assert plan["n_clusters"] == 80 and plan["workspace"] == {}
         assert plan["smem_bytes"] == smem
 
     @pytest.mark.parametrize("kind,n_clusters,workspace", [
-        ("scaling", 9, {"K": (80, 1025, 1025)}), ("bwd", 4, {})])
+        ("scaling", 9, {"K": (80, 1025, 1025)}), ("bwd", 4, {}), ("log", 9, {})])
     def test_streamed_at_1025(self, kind, n_clusters, workspace):
-        """Persistent clusters of 8: K (4.2 MB a pair), or C and G, of the
+        """Persistent clusters of 8: K or C (4.2 MB a pair), or C and G, of the
         clusters stay inside the 40 MB L2 budget."""
         plan = sc.cluster_plan(kind, 80, 1025, 1025)
         assert (plan["cluster_size"], plan["band"], plan["resident"]) == (8, 129, False)
         assert plan["n_clusters"] == n_clusters and plan["workspace"] == workspace
-        in_flight = (1 if kind == "scaling" else 2) * 4 * 1025 * 1025 * n_clusters
+        in_flight = (2 if kind == "bwd" else 1) * 4 * 1025 * 1025 * n_clusters
         assert in_flight <= sc.L2_BUDGET_BYTES
 
     def test_capacity_caps_the_clusters(self):
         assert sc.cluster_plan("scaling", 80, 401, 401, capacity=16)["n_clusters"] == 16
         assert sc.cluster_plan("bwd", 80, 1025, 1025, capacity=2)["n_clusters"] == 2
         assert sc.cluster_plan("bwd", 3, 34, 30, capacity=16)["n_clusters"] == 3
+        assert sc.cluster_plan("log", 80, 401, 401, capacity=30)["n_clusters"] == 30
 
     def test_small_and_unknown(self):
         plan = sc.cluster_plan("scaling", 3, 34, 30)
@@ -145,7 +176,7 @@ class TestPlan:
         with pytest.raises(ValueError):
             sc.cluster_plan("sweep", 2, 40, 40)
 
-    @pytest.mark.parametrize("kind", ["scaling", "bwd"])
+    @pytest.mark.parametrize("kind", ["scaling", "bwd", "log"])
     def test_every_plan_fits_the_source(self, kind):
         """Over ragged shapes: the source's constants, a band per block that
         covers the rows and leaves none empty, shared bytes within a block's
@@ -153,7 +184,7 @@ class TestPlan:
         assert _source_constant("CT") == sc.CLUSTER_THREADS
         assert _source_constant("CS_MAX") == sc.CLUSTER_SIZES[-1]
         assert _source_constant("KC_STREAMED") == sc.COLUMN_SLOTS[-1]
-        for name in ("scaling_cluster_kernel", "bwd_cluster_kernel"):
+        for name in ("scaling_cluster_kernel", "bwd_cluster_kernel", "log_cluster_kernel"):
             cases = re.findall(rf"case (\w+): return {name}<true", SOURCE.read_text())
             assert {sc.COLUMN_SLOTS[-1] if k == "KC_STREAMED" else int(k) for k in cases} \
                 == set(sc.COLUMN_SLOTS)
@@ -172,3 +203,14 @@ class TestPlan:
             sc.sinkhorn_scaling(c, mu, mu, 10, 0.0)
         with pytest.raises(ValueError):
             sc.sinkhorn_bwd(c, mu[:, None], mu[:, None], c, mu, mu)
+        with pytest.raises(ValueError):
+            sc.sinkhorn_log(c, mu, mu, 10, 0.0)
+        with pytest.raises(ValueError):
+            sc.sinkhorn_log_stash(c, mu, mu, 10, 0.0)
+
+    @pytest.mark.parametrize("kind", ["scaling", "bwd", "log"])
+    def test_wider_than_the_lanes_is_refused(self, kind):
+        """N <= 32 x 33 = 1056: a wider pair matrix raises before any launch."""
+        assert sc.cluster_plan(kind, 2, 40, 1056)["column_slots"] == 33
+        with pytest.raises(ValueError, match="N <= 1056"):
+            sc.cluster_plan(kind, 2, 40, 1057)
