@@ -53,6 +53,24 @@ Phases, each fatal on failure:
                    translation losses, the guard's skips, launch counts per
                    step, no host sync inside a step, first-step gradients of
                    kernels against plain at a conditioned point.
+  8. cli        -- both command lines through `python -m` from a ScanNet-format
+                   tree (sphere-field scenes at 480x640 with exact depth,
+                   written by `data/synthetic.write_scannet_format`): stage 1
+                   of `cli.train` (V=5, K=400, B=8, jitter on, 2 steps, the
+                   TensorBoard scalars, a profiler trace of step 2, whose CUDA
+                   kernels must be the training kernels, as many as a step
+                   launches), stage 2 (`--pose_loss --init_exp_name`), then
+                   `cli.eval_multi_view` (K=1024, 100 iterations, conf MLP,
+                   w8pt_ba, 8 tuples) on the stage-2 weights and SuperPoint
+                   weights imported from a seeded upstream-layout state dict;
+                   the eval `main()` once more in this process, for the
+                   kernels' launch counts and the same metrics. Host time to
+                   load a batch, steps/s of both stages, eval tuples/s. Then
+                   a tree with real ScanNet's 1296x968 JPEG color: the host
+                   load of a batch, and a 20-step stage-1 loop (no profiler):
+                   steps/s of the loop and of its step alone, and the share
+                   of the loop spent waiting on data, while the loader runs
+                   (steps 6-17) and after it has finished (18-20).
 The third line from the end is {"kernels": [...]}, then the card's name and
 power limit, and the last line is {"ok": true, "device": {...}}. Without a
 CUDA device, or outside the repository, it exits non-zero and prints no
@@ -61,6 +79,7 @@ result. `--phases a,b` runs a subset while debugging (no result line).
 
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -1594,7 +1613,275 @@ def _device_busy(fn, groups=None):
             "top_device_ms": [[n[:60], round(ms, 3)] for n, ms in top]}
 
 
-PHASES = ("kernel", "reference", "main_path", "train_path", "pose_path")
+# per-step launches of the training kernels, by the name of their CUDA symbol
+TRACE_KERNELS = {"attn_fwd": r"\battn_fwd_kernel<",
+                 "cross_attn_fwd_lse": r"\bcross_attn_fwd_kernel<\d+, true>",
+                 "cross_attn_bwd_dq": r"\bcross_attn_bwd_dq_kernel<",
+                 "cross_attn_bwd_dkv": r"\bcross_attn_bwd_dkv_kernel<",
+                 "sinkhorn_log_stash": r"\blog_cluster_kernel<",
+                 "sinkhorn_bwd": r"\bbwd_cluster_kernel<"}
+
+
+def _upstream_superpoint(rng):
+    """A seeded SuperPoint state dict in the upstream magicleap layout, drawn
+    as flax draws a convolution (LeCun normal, zero bias)."""
+    shapes = {"conv1a": (64, 1, 3), "conv1b": (64, 64, 3), "conv2a": (64, 64, 3),
+              "conv2b": (64, 64, 3), "conv3a": (128, 64, 3), "conv3b": (128, 128, 3),
+              "conv4a": (128, 128, 3), "conv4b": (128, 128, 3), "convPa": (256, 128, 3),
+              "convPb": (65, 256, 1), "convDa": (256, 128, 3), "convDb": (256, 256, 1)}
+    sd = {}
+    for name, (o, i, k) in shapes.items():
+        sd[f"module.{name}.weight"] = (rng.normal(size=(o, i, k, k))
+                                       * (i * k * k) ** -0.5).astype(np.float32)
+        sd[f"module.{name}.bias"] = np.zeros(o, np.float32)
+    return sd
+
+
+def _run_cli(module, args, log_path):
+    """`python -m <port>.cli.<module> args` from the repository root; returns
+    (its log, wall seconds). Fails on a non-zero exit."""
+    t0 = time.perf_counter()
+    with open(log_path, "w") as log:
+        proc = subprocess.run([sys.executable, "-m", f"{PKG}.cli.{module}", *args],
+                              cwd=ROOT, stdout=log, stderr=subprocess.STDOUT, timeout=900)
+    wall = time.perf_counter() - t0
+    text = Path(log_path).read_text()
+    check(proc.returncode == 0, f"cli: {module} {' '.join(args)} exited {proc.returncode}:\n"
+          f"{text[-4000:]}")
+    return text, wall
+
+
+def _train_log(text, tag):
+    """(experiment name, [(step, mean batch s, loss)], [val losses], trace path)
+    from the log of one `cli.train` run."""
+    import re
+
+    exp = re.search(r"experiment (\S+)", text)
+    steps = [(int(m.group(2)), float(m.group(3)), float(m.group(4))) for m in re.finditer(
+        r"epoch +(\d+) it +(\d+) \| batch ([\d.]+)s \| loss (\S+)", text)]
+    vals = [float(m.group(1)) for m in re.finditer(r"epoch +\d+ \| val loss (\S+)", text)]
+    trace = re.search(r"profiler trace of steps \d+-\d+: (\S+)", text)
+    check(exp is not None and steps and vals, f"cli ({tag}): no experiment, step or "
+          f"validation line in the log:\n{text[-3000:]}")
+    check(all(math.isfinite(x[2]) for x in steps) and all(math.isfinite(v) for v in vals),
+          f"cli ({tag}): non-finite losses {steps} {vals}")
+    return exp.group(1), steps, vals, trace.group(1) if trace else None
+
+
+def _hd_tree(src, dst, n_train):
+    """A copy of the ScanNet-format tree `src` with real ScanNet's color:
+    1296x968 JPEG over the 480x640 depth, the color intrinsics scaled to it.
+    Its train split repeats the train scenes of `src` as `n_train` scenes;
+    val is that of `src`. Returns `dst`."""
+    import shutil
+
+    import cv2
+
+    s, d = f"{src}/scannet", f"{dst}/scannet"
+    os.makedirs(f"{d}/overlap/scans")
+    converted = {}
+
+    def add(name, orig):
+        sdir = f"{d}/scans/{name}"
+        if orig in converted:
+            shutil.copytree(converted[orig], sdir)
+        else:
+            shutil.copytree(f"{s}/scans/{orig}", sdir)
+            for jpg in Path(f"{sdir}/color").glob("*.jpg"):
+                img = cv2.imread(str(jpg), cv2.IMREAD_COLOR)
+                scale = np.array([[1296 / img.shape[1]], [968 / img.shape[0]], [1], [1]])
+                check(cv2.imwrite(str(jpg), cv2.resize(img, (1296, 968))),
+                      f"cli: cannot write {jpg}")
+            intr = f"{sdir}/intrinsic/intrinsic_color.txt"
+            np.savetxt(intr, np.loadtxt(intr) * scale, delimiter=" ")
+            converted[orig] = sdir
+        shutil.copy(f"{s}/overlap/scans/{orig}.json", f"{d}/overlap/scans/{name}.json")
+
+    splits = {sp: Path(f"{s}/scannetv2_{sp}.txt").read_text().split() for sp in ("train", "val")}
+    train = [f"scene{1000 + i:04d}_00" for i in range(n_train)]
+    for i, name in enumerate(train):
+        add(name, splits["train"][i % len(splits["train"])])
+    for name in splits["val"]:
+        add(name, name)
+    for sp, names in (("train", train), ("val", splits["val"])):
+        Path(f"{d}/scannetv2_{sp}.txt").write_text("".join(f"{n}\n" for n in names))
+    return dst
+
+
+def _loop_window(text, steps, a, b):
+    """(loop steps/s, step-alone steps/s, share of the loop spent waiting on
+    data) over steps a+1..b of a `cli.train` run logged every step: the
+    loop's rate from the timestamps of the log lines of steps a and b, the
+    step's own time from `TimeTracker`'s running means (`steps` from
+    `_train_log`), which start a step's clock when its batch has arrived."""
+    import datetime
+    import re
+
+    stamps = [datetime.datetime.strptime(m.group(1), "%Y-%m-%d %H:%M:%S,%f") for m in
+              re.finditer(r"^(\S+ \S+) INFO epoch +\d+ it +\d+ \|", text, re.M)]
+    check(len(stamps) == len(steps) >= b > a >= 1,
+          f"cli: {len(stamps)} timestamped steps of {len(steps)}, window {a}..{b}")
+    loop_s = (stamps[b - 1] - stamps[a - 1]).total_seconds()
+    step_s = steps[b - 1][1] * b - steps[a - 1][1] * a
+    return {"steps": [a + 1, b], "loop_steps_per_s": (b - a) / loop_s,
+            "step_alone_steps_per_s": (b - a) / step_s, "data_wait_share": 1.0 - step_s / loop_s}
+
+
+def cli_phase(workdir, card, n_steps=2, hd_steps=20):
+    """Both command lines at full width from a ScanNet-format tree, in
+    subprocesses as a user runs them; then the eval `main()` in this process
+    for the launch counts. Returns those counts."""
+    import re
+    import shutil
+    from concurrent.futures import ThreadPoolExecutor
+
+    import cv2
+    import torch
+
+    from e2e_multi_view_matching_tpu_torch.cli import eval_multi_view as tev
+    from e2e_multi_view_matching_tpu_torch.data.synthetic import (
+        SphereFieldScene,
+        fourier_texture_image,
+        write_scannet_format,
+    )
+    from e2e_multi_view_matching_tpu_torch.data.tuples import (
+        MatchingTupleDataset,
+        batch_iterator,
+    )
+    from e2e_multi_view_matching_tpu_torch.models.torch_import import import_superpoint
+
+    V, B, H, W = 5, 8, 480, 640
+    data, ckpt = f"{workdir}/cli_data", f"{workdir}/cli_runs"
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(7)
+    layout = [("train", "scene0000_00"), ("train", "scene0001_00"), ("val", "scene0100_00"),
+              ("test", "scene0707_00")]
+    scenes = [SphereFieldScene(rng, n_views=8, H=H, W=W, f=577.0) for _ in layout]
+    with ThreadPoolExecutor(4) as pool:  # the exact depth of every pixel, cached per scene
+        list(pool.map(lambda sc: [sc.grid_depth(v) for v in range(8)], scenes))
+    for (split, name), scene in zip(layout, scenes):
+        write_scannet_format(scene, data, scene_name=name, split=split,
+                             image_fn=fourier_texture_image)
+    write_s = time.perf_counter() - t0
+
+    # host time to load one batch of 8 training tuples (decode, jitter, stack)
+    train_set = MatchingTupleDataset(f"{data}/scannet", "train", V, n_samples=200, jitter=0.2)
+    load_s = []
+    for seed in (0, 1):
+        t0 = time.perf_counter()
+        next(batch_iterator(train_set, B, shuffle=True, seed=seed))
+        load_s.append(time.perf_counter() - t0)
+    check(len(train_set) == 16, f"cli: {len(train_set)} training tuples, expected 16")
+
+    common = ["--data_dir", data, "--checkpoint_dir", ckpt, "--dataset", "scannet",
+              "--tuple_size", str(V), "--batch_size", str(B), "--i_train", "1"]
+    text1, wall1 = _run_cli("train", common + ["--n_epochs", "1", "--max_steps", str(n_steps),
+                                               "--profile_steps", f"1,{n_steps}"],
+                            f"{workdir}/cli_stage1.log")
+    exp1, steps1, vals1, trace_path = _train_log(text1, "stage 1")
+    text2, wall2 = _run_cli("train", common + ["--pose_loss", "--init_exp_name", exp1,
+                                               "--n_epochs", "2", "--max_steps",
+                                               str(2 * n_steps)], f"{workdir}/cli_stage2.log")
+    exp2, steps2, vals2, _ = _train_log(text2, "stage 2")
+    for exp, epoch in ((exp1, 0), (exp2, 1)):
+        for name in ("cfg.json", "last_model.ckpt", "best_model.ckpt",
+                     f"{epoch:06d}_model.ckpt"):
+            check(os.path.exists(f"{ckpt}/{exp}/{name}"), f"cli: {exp} has no {name}")
+        check(os.path.isdir(f"{ckpt}/runs/{exp}"), f"cli: no TensorBoard run of {exp}")
+    check(len(steps1) == n_steps and len(steps2) == n_steps,
+          f"cli: {len(steps1)} / {len(steps2)} steps logged, expected {n_steps}")
+
+    # the profiled step: the training kernels by their CUDA symbols, each as
+    # many times as one step launches it
+    check(trace_path is not None and os.path.exists(trace_path), "cli: no profiler trace")
+    with open(trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    names = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+    traced = {k: sum(bool(re.search(p, n)) for n in names) for k, p in TRACE_KERNELS.items()}
+    expected = {k: v for k, v in _train_launches(1, 0).items() if k in TRACE_KERNELS}
+    check(traced == expected, f"cli: the traced step launched {traced}, expected {expected}")
+
+    # real ScanNet color (1296x968 JPEG: decode, pad, resize): the host's load
+    # of a batch, and a stage-1 loop long enough to drain the prefetch, with
+    # no profiler and no TensorBoard. The loader works up to three batches
+    # ahead (two queued, one in hand), so it loads during steps up to
+    # hd_steps - 3 and is done for the last three: one window of each, the
+    # first after the process's first steps
+    t0 = time.perf_counter()
+    hd_data = _hd_tree(data, f"{workdir}/cli_data_hd", n_train=hd_steps * B // 8)
+    hd_write_s = time.perf_counter() - t0
+    hd_set = MatchingTupleDataset(f"{hd_data}/scannet", "train", V, n_samples=200, jitter=0.2)
+    check(len(hd_set) == hd_steps * B, f"cli: {len(hd_set)} 1296x968 training tuples, "
+          f"expected {hd_steps * B}")
+    hd_load_s = []
+    for seed in (0, 1):
+        t0 = time.perf_counter()
+        batch = next(batch_iterator(hd_set, B, shuffle=True, seed=seed))
+        hd_load_s.append(time.perf_counter() - t0)
+    check(batch["images"].shape == (B, V, H, W, 1), f"cli: 1296x968 batch of shape "
+          f"{batch['images'].shape}")
+    text4, wall4 = _run_cli("train", ["--data_dir", hd_data, *common[2:], "--n_epochs", "1",
+                                      "--max_steps", str(hd_steps), "--no_tensorboard"],
+                            f"{workdir}/cli_stage1_hd.log")
+    exp4, steps4, vals4, _ = _train_log(text4, "stage 1, 1296x968 color")
+    check(len(steps4) == hd_steps, f"cli: {len(steps4)} steps logged, expected {hd_steps}")
+    windows = {"loading": _loop_window(text4, steps4, 5, hd_steps - 3),
+               "loaded": _loop_window(text4, steps4, hd_steps - 3, hd_steps)}
+
+    # eval: the stage-2 weights as model.ckpt, SuperPoint imported from the
+    # upstream layout, 8 fixed test tuples
+    exp_dir = f"{ckpt}/{exp2}"
+    shutil.copy(f"{exp_dir}/best_model.ckpt", f"{exp_dir}/model.ckpt")
+    torch.save(import_superpoint(_upstream_superpoint(np.random.default_rng(8))),
+               f"{exp_dir}/superpoint.ckpt")
+    csv_path = f"{workdir}/cli_test_tuples.csv"
+    MatchingTupleDataset(f"{data}/scannet", "test", V, n_samples=8,
+                         shuffle_tuple=False).write_sampled_tuples(csv_path)
+    eval_args = ["--data_dir", data, "--checkpoint_dir", ckpt, "--exp_name", exp2,
+                 "--test_tuple_file", csv_path, "--dataset", "scannet", "--tuple_size", str(V)]
+    text3, wall3 = _run_cli("eval_multi_view", eval_args, f"{workdir}/cli_eval.log")
+    with open(f"{exp_dir}/multi_view_scannet.json") as f:
+        sub_metrics = json.load(f)
+    n_tuples = int(re.findall(r"loaded (\d+) test tuples", text3)[-1])
+    check(n_tuples == 8, f"cli: eval loaded {n_tuples} tuples, expected 8")
+
+    torch.cuda.synchronize()
+    _reset_launches()
+    t0 = time.perf_counter()
+    metrics = tev.main(eval_args)
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t0
+    launches = _launches()
+    auc_keys = [f"{m}_AUC@{t}deg" for t in (5, 10, 20) for m in ("pose", "transl", "rot")]
+    emit({"phase": "cli", "codec": f"(a) OpenCV {cv2.__version__}", "card": card,
+          "config": {"V": V, "B": B, "image": [H, W], "train_K": 400, "eval_K": 1024,
+                     "sinkhorn_iters": 100, "jitter": 0.2, "train_tuples": len(train_set),
+                     "eval_tuples": n_tuples, "steps_per_stage": n_steps},
+          "tree_write_seconds": write_s, "host_load_seconds_per_batch_of_8": load_s,
+          "stage1": {"exp": exp1, "wall_seconds": wall1, "steps": steps1, "val_losses": vals1,
+                     "steps_per_s": 1.0 / steps1[-1][1], "profiled_step": n_steps,
+                     "traced_kernel_launches": traced},
+          "stage2": {"exp": exp2, "wall_seconds": wall2, "steps": steps2, "val_losses": vals2,
+                     "steps_per_s": 1.0 / steps2[-1][1]},
+          "stage1_1296x968": {
+              "exp": exp4, "wall_seconds": wall4, "tree_write_seconds": hd_write_s,
+              "host_load_seconds_per_batch_of_8": hd_load_s, "steps": steps4,
+              "val_losses": vals4, "windows": windows},
+          "eval": {"wall_seconds": wall3, "in_process_seconds": eval_s,
+                   "tuples_per_s_with_decode": n_tuples / eval_s, "metrics": metrics},
+          "launches_in_process_eval": launches})
+    check(set(metrics) == set(auc_keys) and all(math.isfinite(metrics[k]) for k in auc_keys),
+          f"cli: eval metrics {metrics}")
+    check(set(sub_metrics) == set(auc_keys), f"cli: multi_view_scannet.json holds {sub_metrics}")
+    check(metrics == sub_metrics, f"cli: in-process metrics {metrics} differ from the "
+          f"subprocess's {sub_metrics}")
+    expected = {**{k: 0 for k in launches}, "attn_fwd": 7, "cross_attn_fwd": 21,
+                "sinkhorn_scaling": 1}
+    check(launches == expected, f"cli: eval launched {launches}, expected {expected}")
+    return launches
+
+
+PHASES = ("kernel", "reference", "main_path", "train_path", "pose_path", "cli")
 
 
 def main(argv=None):
@@ -1642,6 +1929,9 @@ def main(argv=None):
                 torch.cuda.empty_cache()
             if "pose_path" in phases:
                 by_path["pose"] = pose_path_phase(workdir, stage1_exp)
+                torch.cuda.empty_cache()
+            if "cli" in phases:
+                by_path["cli_eval"] = cli_phase(workdir, card)
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1

@@ -1,33 +1,53 @@
 """Multi-view 5-tuple evaluation: SuperPoint -> multi-view matcher -> multi-view pose.
 
 Counterpart of `e2e_multi_view_matching_tpu/cli/eval_multi_view.py`:
-`evaluate` runs fixed tuples through SuperPoint over all B*V frames, the
-matcher, and the fused `w8pt_ba` pose pipeline on the device, then scores
+
+    python -m e2e_multi_view_matching_tpu_torch.cli.eval_multi_view \
+        --data_dir ... --checkpoint_dir ... --exp_name <run> --dataset scannet \
+        --tuple_size 5 [--test_tuple_file <csv>]
+
+`main()` evaluates the run's `model.ckpt` (matcher) with the run's
+`superpoint.ckpt` (a state dict of the port's `SuperPoint`, e.g. from
+`models/torch_import.py`) on the fixed test tuples, and writes
+`<exp_dir>/multi_view_<dataset>.json`. `evaluate` runs fixed tuples through
+SuperPoint over all B*V frames, the matcher, and the fused `w8pt_ba` pose
+pipeline on the device, then scores
 pairwise pose/rotation/translation errors on the host; `write_result` turns
 them into AUC@5/10/20 JSON. Chunks of `eval_scan x eval_batch` tuples are
 queued one ahead: the next chunk's device work is enqueued before the current
 chunk's extrinsics are copied to the host, the only sync of a chunk.
 
-`main()` waits for the dataset readers (`data/tuples.py`); until then callers
-build the modules, load weights (`train/checkpoint.py`, `models/convert.py`)
-and pass the samples themselves.
+Not ported yet: `--data_parallel` and the RANSAC init modes.
 """
 
 import argparse
 import json
 import logging
+import os
 
 import numpy as np
 import torch
 
+from e2e_multi_view_matching_tpu_torch.data.tuples import MatchingTupleDataset
 from e2e_multi_view_matching_tpu_torch.geom.metrics import pose_auc
+from e2e_multi_view_matching_tpu_torch.models.convert import init_like_flax_
+from e2e_multi_view_matching_tpu_torch.models.matcher import (
+    MatcherConfig,
+    MultiViewMatcher,
+    default_gnn_layers,
+)
+from e2e_multi_view_matching_tpu_torch.models.superpoint import SuperPoint, SuperPointConfig
 from e2e_multi_view_matching_tpu_torch.mvba.pipeline import (
     MultiViewPipelineConfig,
     multi_view_pose_device,
 )
+from e2e_multi_view_matching_tpu_torch.train.checkpoint import load_checkpoint, load_config
+from e2e_multi_view_matching_tpu_torch.train.step import TrainState
 from e2e_multi_view_matching_tpu_torch.utils.config import (
     add_generic_arguments,
+    get_exp_dir,
     resolve_device,
+    resolve_kernel_impls,
     to_device,
 )
 
@@ -58,6 +78,13 @@ def parse_args(argv=None):
     parser.add_argument("--init_mode", type=str, default="w8pt_ba",
                         choices=["w8pt_ba"],
                         help="per-pair relative-pose initialization")
+    parser.add_argument("--allow_resampled_tuples", action="store_true",
+                        help="permit evaluating freshly sampled tuples when the "
+                             "fixed benchmark CSV is absent (NOT the benchmark)")
+    parser.add_argument("--allow_random_superpoint", action="store_true",
+                        help="permit running with freshly initialized SuperPoint "
+                             "weights when superpoint.ckpt is absent (meaningless "
+                             "AUC; debugging only)")
     return parser.parse_args(argv)
 
 
@@ -185,3 +212,83 @@ def evaluate(opt, superpoint, matcher, dataset, pipeline_cfg=MultiViewPipelineCo
                     pose_errors[2].append(e_r)
             log.info("tuple %d/%d done", min(lo + chunk_len, n), n)
     return pose_errors
+
+
+def main(argv=None):
+    """Evaluate a run on the fixed test tuples; returns the AUC metrics."""
+    logging.basicConfig(level=logging.INFO, format="%(asctime)s %(levelname)s %(message)s")
+    opt = parse_args(argv)
+    device = resolve_device(opt.device)
+    resolve_kernel_impls(opt, device)
+    exp_dir, _ = get_exp_dir(opt.checkpoint_dir, opt.exp_name)
+    train_cfg = load_config(exp_dir)
+    # detector and GNN shape come from the training run
+    for k in ("remove_borders", "nms_radius", "keypoint_threshold", "cross_attention_layers",
+              "gnn_layers"):
+        setattr(opt, k, train_cfg[k])
+    opt.max_keypoints = 2048 if "megadepth" in opt.dataset else 1024
+
+    superpoint = SuperPoint(SuperPointConfig(
+        nms_radius=opt.nms_radius, keypoint_threshold=opt.keypoint_threshold,
+        max_keypoints=opt.max_keypoints, remove_borders=opt.remove_borders,
+        fill_with_random_keypoints=False, compute_dtype=opt.compute_dtype,
+    ))
+    matcher = MultiViewMatcher(MatcherConfig(
+        gnn_layers=default_gnn_layers(opt.gnn_layers, opt.cross_attention_layers),
+        sinkhorn_iterations=opt.sinkhorn_iterations,
+        conf_mlp=True, multi_frame_matching=True,
+        attention_impl=opt.attention_impl, sinkhorn_impl=opt.sinkhorn_impl,
+        compute_dtype=opt.compute_dtype,
+    ))
+    # weights the files do not hold (a stage-1 run has no conf MLP) keep a
+    # seeded draw
+    g = torch.Generator().manual_seed(0)
+    init_like_flax_(matcher, g)
+    _, _, _, info = load_checkpoint(exp_dir, TrainState(matcher, optimizer=None),
+                                    model_id=None, load_opt_state=False)
+    if info["missing"]:
+        log.warning("model.ckpt lacks %s: seeded random values", info["missing"])
+    sp_path = os.path.join(exp_dir, "superpoint.ckpt")
+    if os.path.exists(sp_path):
+        superpoint.load_state_dict(torch.load(sp_path, map_location="cpu",
+                                              weights_only=True))
+    elif not opt.allow_random_superpoint:
+        raise FileNotFoundError(
+            f"SuperPoint weights not found: {sp_path}. A benchmark run with "
+            "random detector weights is meaningless; import pretrained weights "
+            "(models/torch_import.py) or pass --allow_random_superpoint."
+        )
+    else:
+        log.warning("superpoint.ckpt absent; using RANDOM SuperPoint weights")
+        init_like_flax_(superpoint, g)
+
+    dataset_dir = os.path.join(opt.data_dir, opt.dataset)
+    test_dataset = MatchingTupleDataset(
+        dataset_dir, split="test", tuple_size=opt.tuple_size, shuffle_tuple=False,
+        n_samples=1,
+    )
+    tuple_file = opt.test_tuple_file or os.path.join(
+        os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
+        "assets", f"{opt.dataset.split('_')[0]}_test_5tuples.csv",
+    )
+    if os.path.exists(tuple_file):
+        test_dataset.read_sampled_tuples(tuple_file)
+    elif opt.test_tuple_file is not None or not opt.allow_resampled_tuples:
+        # the benchmark is the fixed tuple list; resampling measures another thing
+        raise FileNotFoundError(
+            f"fixed test-tuple CSV not found: {tuple_file}. Pass "
+            "--test_tuple_file or --allow_resampled_tuples to evaluate on "
+            "freshly sampled (non-benchmark) tuples."
+        )
+    else:
+        log.warning("no fixed tuple CSV; evaluating on RESAMPLED tuples "
+                    "(not the reference benchmark)")
+    log.info("loaded %d test tuples", len(test_dataset))
+
+    pose_errors = evaluate(opt, superpoint, matcher, test_dataset, device=device)
+    out_json = os.path.join(exp_dir, f"multi_view_{opt.dataset.split('_')[0]}.json")
+    return write_result(pose_errors, out_json)
+
+
+if __name__ == "__main__":
+    main()

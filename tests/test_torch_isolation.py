@@ -42,7 +42,8 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     # the walk reaches a subpackage only through its __init__.py
     for name in ("train.step", "train.optim", "train.checkpoint", "train.losses",
                  "data.gt_matches", "data.synthetic", "cli.train", "utils.trackers",
-                 "geom.linalg", "geom.eightpoint", "ops.attention_cuda"):
+                 "geom.linalg", "geom.eightpoint", "ops.attention_cuda", "data.tuples",
+                 "data.scannet", "data.sampling", "utils.tblog", "models.torch_import"):
         assert f"e2e_multi_view_matching_tpu_torch.{name}" in result["modules"], name
     assert result["bad"] == [], f"the port pulled in {result['bad']}"
 

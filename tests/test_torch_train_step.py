@@ -320,19 +320,23 @@ def test_cli_train_writes_checkpoints_resumes_and_initializes(env, tmp_path, mon
     assert started.step == 3 and int(started.optimizer.count) == 1
 
 
-def test_cli_flags_match_jax_and_unported_modes_are_refused(capsys):
+def test_cli_flags_match_jax_and_unported_modes_are_refused(capsys, tmp_path):
     """`parse_args` keeps the JAX flags' names and defaults (the port adds
-    `--device`); distributed flags, profiling and `main()` say what they
-    wait for instead of running something else."""
+    `--device`); the distributed flags name the modules they wait for,
+    `--profile_steps` parses, and `main()` trains from --data_dir (here a
+    missing one) instead of stopping."""
     from e2e_multi_view_matching_tpu.cli import train as jcli
 
     ours, ref = vars(tcli.parse_args([])), vars(jcli.parse_args([]))
     assert set(ours) - set(ref) == {"device"} and set(ref) <= set(ours)
     for k in ref:
         assert ours[k] == ref[k], k
-    for flags in (["--model_parallel", "2"], ["--multi_host"], ["--profile_steps", "1,2"]):
+    for flags in (["--model_parallel", "2"], ["--multi_host"]):
         with pytest.raises(SystemExit):
             tcli.parse_args(flags)
-    assert "Queue 1 item 13" in capsys.readouterr().err
-    with pytest.raises(SystemExit, match="dataset readers"):
-        tcli.main(["--checkpoint_dir", "x"])
+    err = capsys.readouterr().err
+    assert "parallel/mesh.py" in err and "mvba/distributed.py" in err
+    assert tcli.parse_args(["--profile_steps", "1,2"]).profile_steps == "1,2"
+    with pytest.raises(FileNotFoundError):
+        tcli.main(["--checkpoint_dir", str(tmp_path), "--data_dir", str(tmp_path / "none"),
+                   "--device", "cpu", "--no_tensorboard"])
