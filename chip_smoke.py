@@ -23,8 +23,13 @@ Phases, each fatal on failure:
                    launches and a per-iteration split (times at 10 and 100
                    iterations: slope and intercept); the stashed log-domain
                    forward and the sweep are also held and timed at 80 x 1025
-                   x 1025 (streamed). Bounds: the largest of FP32 operations,
-                   exponentials and bytes at the card's peak rates.
+                   x 1025 (streamed), and `sinkhorn_scaling` in its wide
+                   instantiation at 8 and 80 x 2049 x 2049 (K = 2048: no
+                   spill). The attention forward kernels also at the pair
+                   benchmark's shapes (V = 2, K = 1024 and 2048) and the
+                   multi-view ones at K = 2048.
+                   Bounds: the largest of FP32 operations, exponentials and
+                   bytes at the card's peak rates.
   4. reference  -- the pose pipeline on the card recovers the known poses of a
                    small exact synthetic 5-tuple.
   5. main_path  -- `cli.eval_multi_view.evaluate` at full width (V=5, K=1024,
@@ -71,6 +76,23 @@ Phases, each fatal on failure:
                    steps/s of the loop and of its step alone, and the share
                    of the loop spent waiting on data, while the loader runs
                    (steps 6-17) and after it has finished (18-20).
+  9. pairs      -- the two-view pair benchmark: `cli.eval_pairs` through
+                   `python -m` (w8pt_ba, three AUCs) on 16 ScanNet-format pairs
+                   with real ScanNet's 1296x968 color (537 x 720 frames on a
+                   640 x 768 bucket, K = 1024), a seeded two-view matcher (9 x
+                   (self + cross), conf MLP, 100 iterations) and an imported
+                   SuperPoint; then `evaluate` in this process in all five
+                   modes on the kernels and in w8pt_ba on the plain versions:
+                   pairs/s, exact launch counts (9 / 9 / 1 a sub-chunk of 8
+                   pairs), chunk signatures, at least half the pairs with a
+                   pose; on one sub-chunk, at least 8 matches a pair, the
+                   matches and probabilities of kernels and plain against a
+                   float64 plain run, finite poses of the valid pairs, no
+                   host sync inside a w8pt sub-chunk, the stage times. The same
+                   in w8pt_ba on 16 MegaDepth-format pairs at K = 2048, long
+                   side 1600 in three shapes (three bucket pairs), and the
+                   multi-view `evaluate` at K = 2048 (V = 5, 8 tuples: the
+                   Sinkhorn at 80 x 2049 x 2049).
 The third line from the end is {"kernels": [...]}, then the card's name and
 power limit, and the last line is {"ok": true, "device": {...}}. Without a
 CUDA device, or outside the repository, it exits non-zero and prints no
@@ -268,56 +290,80 @@ def _attention_records(g):
     # validation, cross at (32, 2000, 64) on per-view tiles of which the last is
     # ragged; those go into each kernel's record as `train_shapes`. The masked
     # kernel in cross mode at (32, 2000, 64), which no path runs since the
-    # cross kernels take any K, is timed beside it for comparison.
+    # cross kernels take any K, is timed beside it for comparison. The pair
+    # benchmark (V = 2: self at (64, K, 64), cross at (32, 2K, 64), K = 1024
+    # and 2048) and the multi-view evaluation at K = 2048 ((160, 2048, 64),
+    # (32, 10240, 64)) go in as `pair_shapes`.
     jax_file = "e2e_multi_view_matching_tpu/ops/attention_pallas.py"
     by_name = {}
     for name, Bt, n_views, K, mode, replaces in (
         ("attn_fwd", 8 * V, 1, 1024, "full", f"{jax_file}:51"),
         ("cross_attn_fwd", 8, V, 1024, "cross", f"{jax_file}:74"),
-        ("attn_fwd", 8 * V, 1, 400, "full", None),
-        ("cross_attn_fwd", 8, V, 400, "cross", None),
-        ("attn_fwd", 8, V, 400, "cross", None),
+        ("attn_fwd", 8 * V, 1, 400, "full", "train"),
+        ("cross_attn_fwd", 8, V, 400, "cross", "train"),
+        ("attn_fwd", 8, V, 400, "cross", "train"),
+        ("attn_fwd", 8 * 2, 1, 1024, "full", "pairs, K = 1024"),
+        ("cross_attn_fwd", 8, 2, 1024, "cross", "pairs, K = 1024"),
+        ("attn_fwd", 8 * 2, 1, 2048, "full", "pairs, K = 2048"),
+        ("cross_attn_fwd", 8, 2, 2048, "cross", "pairs, K = 2048"),
+        ("attn_fwd", 8 * V, 1, 2048, "full", "multi-view, K = 2048"),
+        ("cross_attn_fwd", 8, V, 2048, "cross", "multi-view, K = 2048"),
     ):
         S = n_views * K
+        # the plain version on the first nb entries of the batch: its scores
+        # take at most 4 GB (all 8 at 32 x 10240 x 64 would take 13 GB a copy)
+        nb = max(1, min(Bt, int(2**30 // (h * S * S))))
         q, k, v = rand(Bt, S, D), rand(Bt, S, D), rand(Bt, S, D)
 
         def split(x):
-            return x.reshape(Bt, S, h, dh).transpose(1, 2).contiguous()
+            return x.reshape(x.shape[0], S, h, dh).transpose(1, 2).contiguous()
 
         qs, ks, vs = split(q), split(k), split(v)
         q3, k3, v3 = (x.reshape(Bt * h, S, dh) for x in (qs, ks, vs))
         scale = 1.0 / math.sqrt(dh)
-        mask = ac.cross_view_mask(V, K, device=dev) if mode == "cross" else None
-        keys = (V - 1) * K if mode == "cross" else S  # keys a query has to see
+        mask = ac.cross_view_mask(n_views, K, device=dev) if mode == "cross" else None
+        keys = (n_views - 1) * K if mode == "cross" else S  # keys a query has to see
         if name == "attn_fwd":
             run = lambda: ac.attn_fwd(q3, k3, v3, K, mode, scale)  # noqa: E731
         else:
-            run = lambda: ac.cross_attn_fwd(q3, k3, v3, V, K, scale)  # noqa: E731
+            run = lambda: ac.cross_attn_fwd(q3, k3, v3, n_views, K, scale)  # noqa: E731
         # the public dispatch and the wrapper itself, against the plain version
-        out = ac.fused_view_attention(q, k, v, h, n_views, K, mode)
-        ref = ac.plain_view_attention(q, k, v, h, n_views, K, mode)
-        out3 = run()
+        out = ac.fused_view_attention(q, k, v, h, n_views, K, mode)[:nb]
+        ref = ac.plain_view_attention(q[:nb], k[:nb], v[:nb], h, n_views, K, mode)
+        out3 = run()[:nb * h]
         torch.cuda.synchronize()
         err = max(float((out - ref).abs().max()),
-                  float((out3 - split(ref).reshape(Bt * h, S, dh)).abs().max()))
+                  float((out3 - split(ref).reshape(nb * h, S, dh)).abs().max()))
+        del out, ref, out3
         ms = cuda_ms(run, 5)
-        plain_ms = cuda_ms(lambda: ac.plain_view_attention(q, k, v, h, n_views, K, mode), 3)
-        lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask), 3)
+        qn, kn, vn = q[:nb], k[:nb], v[:nb]
+        plain_ms = cuda_ms(lambda: ac.plain_view_attention(qn, kn, vn, h, n_views, K, mode), 3)
+        qsn, ksn, vsn = qs[:nb], ks[:nb], vs[:nb]
+        lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qsn, ksn, vsn, attn_mask=mask),
+                         3)
         BH = Bt * h
         ops = 4.0 * BH * S * keys * dh + BH * S * keys  # FMAs x2 + one exp per score
         nbytes = 4 * BH * S * dh * 4  # q, k, v read once, o written once
         b_ms, b_by, b_unit = bound(ops, nbytes, exps=float(BH * S * keys))
-        check(err <= ATTN_TOL, f"{name} {mode} K={K}: max |kernel - plain| {err} > {ATTN_TOL}")
+        where = f"{name} {mode} V={n_views} K={K}"
+        check(err <= ATTN_TOL, f"{where}: max |kernel - plain| {err} > {ATTN_TOL}")
         measured = {"max_abs_err": err, "tol": ATTN_TOL, "ms": ms, "plain_ms": plain_ms,
                     "bound_ms": b_ms, "bound_by": b_by, "bound_unit": b_unit, "library_ms": lib_ms,
                     "shape": [BH, S, dh], **_occupancy(name, BH, S, n_views, K, dh, mode)}
-        if replaces is None:
+        if nb < Bt:  # plain and library timed on the batch entries compared
+            measured["compared_batch"] = [nb, Bt]
+        if replaces == "train":
             by_name[name].setdefault("train_shapes", []).append({"mode": mode, **measured})
+        elif replaces.startswith(("pairs", "multi-view")):
+            by_name[name].setdefault("pair_shapes", []).append(
+                {"path": replaces, "mode": mode, **measured})
         else:
             by_name[name] = {"name": name, "route": "cuda",
                              "source": f"{PKG}/ops/csrc/attention_cuda.cu",
                              "replaces": replaces, "launches": 0, **measured}
             records.append(by_name[name])
+        del q, k, v, qs, ks, vs, q3, k3, v3, qn, kn, vn, qsn, ksn, vsn
+        torch.cuda.empty_cache()
 
     # the masked kernel's other modes and its ragged edge, and the cross kernel
     # on ragged per-view tiles (200 = 3 x 64 + 8), at a smaller shape
@@ -508,16 +554,6 @@ def _sinkhorn_record(g):
     dev = torch.device("cuda")
     B, T = 80, 100  # B*P pair matrices of an eval chunk, 100 iterations
     alpha = torch.ones((), device=dev)
-    n_absorb = T // sc.ABSORB_EVERY
-
-    def scaling_bound(K):
-        # 4 flops per entry per scaling iteration (two matvecs), the exact first
-        # iteration (2 exp + 4 add/max per entry), one exp + 2 adds per entry per
-        # rebuild, 3 for the output; couplings read once, log assignment
-        # written once; 2 + n_absorb exponentials per entry
-        elems = float(B * (K + 1) * (K + 1))
-        return bound(elems * (4 * (T - 1) + 6 + 3 * n_absorb + 3), 2.0 * elems * 4,
-                     exps=elems * (2 + n_absorb))
 
     def shape(K, scales):
         errs = {}
@@ -543,20 +579,76 @@ def _sinkhorn_record(g):
                 split = _per_iteration(
                     lambda t: sc.log_optimal_transport_cuda(scores, alpha, t), ms)
             del z, z_again, z_ref, scores
-        b_ms, b_by, b_unit = scaling_bound(K)
+        b_ms, b_by, b_unit = _scaling_bound(B, K + 1, K + 1, T)
         return errs, {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
                       "bound_unit": b_unit, "library_ms": None, "shape": [B, K + 1, K + 1, T],
                       "bitwise_repeatable": True, **info, "per_iteration": split}
 
     errs, measured = shape(1024, ((4.0, SINKHORN_TOL), (400.0, SINKHORN_EXTREME_TOL)))
     errs_t, measured_t = shape(400, ((4.0, SINKHORN_TOL),))
+    wide = [_sinkhorn_wide_shape(g, B_wide) for B_wide in (8, 80)]
     return {"name": "sinkhorn_scaling", "route": "cuda",
             "source": f"{PKG}/ops/csrc/sinkhorn_cuda.cu",
             "replaces": "e2e_multi_view_matching_tpu/ops/sinkhorn_pallas.py:106",
             "launches": 0, "max_abs_err": errs[4.0], "tol": SINKHORN_TOL,
             "max_abs_err_scale400": errs[400.0], "tol_scale400": SINKHORN_EXTREME_TOL,
             **measured,
-            "train_shapes": [{"max_abs_err": errs_t[4.0], "tol": SINKHORN_TOL, **measured_t}]}
+            "train_shapes": [{"max_abs_err": errs_t[4.0], "tol": SINKHORN_TOL, **measured_t}],
+            "wide_shapes": wide}
+
+
+def _scaling_bound(B, M, N, T):
+    """`bound` of a scaling-domain solve of B pair matrices of M x N, T
+    iterations: 4 flops per entry per scaling iteration (two matvecs), the
+    exact first iteration (2 exp + 4 add/max per entry), one exp + 2 adds per
+    entry per rebuild, 3 for the output; couplings read once, log assignment
+    written once; 2 + n_absorb exponentials per entry."""
+    from e2e_multi_view_matching_tpu_torch.ops.sinkhorn_cuda import ABSORB_EVERY
+
+    n_absorb = T // ABSORB_EVERY
+    elems = float(B * M * N)
+    return bound(elems * (4 * (T - 1) + 6 + 3 * n_absorb + 3), 2.0 * elems * 4,
+                 exps=elems * (2 + n_absorb))
+
+
+def _sinkhorn_wide_shape(g, B, K=2048, T=100):
+    """`sinkhorn_scaling` in its wide instantiation at B pair matrices of
+    (K+1) x (K+1) (the two-view pairs and the multi-view chunk at K = 2048):
+    against its plain version, the same bits on two runs, no spill; its
+    time, plan and per-iteration split. (`tools/torch_sinkhorn_times.py
+    --kernel scaling --cluster_counts` times the solve at other cluster
+    counts.)"""
+    import torch
+
+    from e2e_multi_view_matching_tpu_torch.ops import sinkhorn_cuda as sc
+    from e2e_multi_view_matching_tpu_torch.ops.sinkhorn import log_optimal_transport
+
+    dev = torch.device("cuda")
+    alpha = torch.ones((), device=dev)
+    M = N = K + 1
+    where = f"sinkhorn_scaling at {B} x {M} x {N}"
+    scores = torch.randn(B, K, K, generator=g, device=dev) * 4.0
+    z = sc.log_optimal_transport_cuda(scores, alpha, T)
+    z_again = sc.log_optimal_transport_cuda(scores, alpha, T)
+    z_ref = log_optimal_transport(scores, alpha, T, impl="mxu")
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(z).all()), f"{where}: non-finite output")
+    check(bool(torch.equal(z, z_again)), f"{where}: two runs give different bits")
+    err = _prob_err(z, z_ref)
+    check(err <= SINKHORN_TOL, f"{where}: max prob err {err} > {SINKHORN_TOL}")
+    del z_again, z_ref
+    run = lambda: sc.log_optimal_transport_cuda(scores, alpha, T)  # noqa: E731
+    ms = cuda_ms(run, 3)
+    plain_ms = cuda_ms(lambda: log_optimal_transport(scores, alpha, T, impl="mxu"), 2)
+    info = _cluster_info("scaling", B, M, N, run, ms)
+    check(info["local_bytes"] == 0, f"{where}: {info['local_bytes']} bytes of spills")
+    split = _per_iteration(lambda t: sc.log_optimal_transport_cuda(scores, alpha, t), ms)
+    del z, scores
+    torch.cuda.empty_cache()
+    b_ms, b_by, b_unit = _scaling_bound(B, M, N, T)
+    return {"shape": [B, M, N, T], "max_abs_err": err, "tol": SINKHORN_TOL, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "bound_unit": b_unit,
+            "bitwise_repeatable": True, **info, "per_iteration": split}
 
 
 def _sinkhorn_train_records(g):
@@ -1668,14 +1760,25 @@ def _train_log(text, tag):
     return exp.group(1), steps, vals, trace.group(1) if trace else None
 
 
+def _scannet_color(sdir):
+    """The color of the ScanNet-format scene `sdir` rewritten as real
+    ScanNet's: 1296x968 JPEG, the color intrinsics scaled to it."""
+    import cv2
+
+    for jpg in Path(f"{sdir}/color").glob("*.jpg"):
+        img = cv2.imread(str(jpg), cv2.IMREAD_COLOR)
+        scale = np.array([[1296 / img.shape[1]], [968 / img.shape[0]], [1], [1]])
+        check(cv2.imwrite(str(jpg), cv2.resize(img, (1296, 968))), f"cannot write {jpg}")
+    intr = f"{sdir}/intrinsic/intrinsic_color.txt"
+    np.savetxt(intr, np.loadtxt(intr) * scale, delimiter=" ")
+
+
 def _hd_tree(src, dst, n_train):
     """A copy of the ScanNet-format tree `src` with real ScanNet's color:
     1296x968 JPEG over the 480x640 depth, the color intrinsics scaled to it.
     Its train split repeats the train scenes of `src` as `n_train` scenes;
     val is that of `src`. Returns `dst`."""
     import shutil
-
-    import cv2
 
     s, d = f"{src}/scannet", f"{dst}/scannet"
     os.makedirs(f"{d}/overlap/scans")
@@ -1687,13 +1790,7 @@ def _hd_tree(src, dst, n_train):
             shutil.copytree(converted[orig], sdir)
         else:
             shutil.copytree(f"{s}/scans/{orig}", sdir)
-            for jpg in Path(f"{sdir}/color").glob("*.jpg"):
-                img = cv2.imread(str(jpg), cv2.IMREAD_COLOR)
-                scale = np.array([[1296 / img.shape[1]], [968 / img.shape[0]], [1], [1]])
-                check(cv2.imwrite(str(jpg), cv2.resize(img, (1296, 968))),
-                      f"cli: cannot write {jpg}")
-            intr = f"{sdir}/intrinsic/intrinsic_color.txt"
-            np.savetxt(intr, np.loadtxt(intr) * scale, delimiter=" ")
+            _scannet_color(sdir)
             converted[orig] = sdir
         shutil.copy(f"{s}/overlap/scans/{orig}.json", f"{d}/overlap/scans/{name}.json")
 
@@ -1881,7 +1978,397 @@ def cli_phase(workdir, card, n_steps=2, hd_steps=20):
     return launches
 
 
-PHASES = ("kernel", "reference", "main_path", "train_path", "pose_path", "cli")
+def _pair_grid(samples, eval_batch, eval_scan, bucket=128):
+    """The chunks `cli.eval_pairs.evaluate` makes of `samples`: (sub-chunks,
+    distinct (bucket pair, S) signatures)."""
+    counts = {}
+    for d in samples:
+        key = tuple(tuple(-(-x // bucket) * bucket for x in d[f"image{s}"].shape[:2])
+                    for s in (0, 1))
+        counts[key] = counts.get(key, 0) + 1
+    chunk, n_sub, sigs = eval_batch * eval_scan, 0, set()
+    for key, n in counts.items():
+        for lo in range(0, n, chunk):
+            S = -(-min(chunk, n - lo) // eval_batch)
+            n_sub += S
+            sigs.add((key, S))
+    return n_sub, len(sigs)
+
+
+def _pair_sub_chunk(samples, bucket=128):
+    """The tensors of one sub-chunk of same-bucket pairs on the card, as
+    `cli.eval_pairs.evaluate` makes them: (images0, images1, sizes, valid0,
+    valid1, K0, K1)."""
+    import torch
+
+    def canvas(img, shape):
+        out = np.zeros(shape + (1,), np.float32)
+        out[:img.shape[0], :img.shape[1]] = img
+        return out
+
+    shapes = [tuple(-(-x // bucket) * bucket for x in samples[0][f"image{s}"].shape[:2])
+              for s in (0, 1)]
+    cuda = lambda a: torch.from_numpy(np.asarray(a, np.float32)).cuda()  # noqa: E731
+    return (cuda(np.stack([canvas(d["image0"], shapes[0]) for d in samples])),
+            cuda(np.stack([canvas(d["image1"], shapes[1]) for d in samples])),
+            cuda([[d["image0"].shape[:2], d["image1"].shape[:2]] for d in samples]),
+            cuda([d["image0"].shape[:2] for d in samples]),
+            cuda([d["image1"].shape[:2] for d in samples]),
+            cuda([d["intr0"][:3, :3] for d in samples]),
+            cuda([d["intr1"][:3, :3] for d in samples]))
+
+
+def _host_syncs(fn):
+    """The Python lines at which `fn()` synchronised the host with the card."""
+    import warnings
+
+    import torch
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return sorted({f"{Path(w.filename).name}:{w.lineno}" for w in caught
+                   if "synchronizing CUDA operation" in str(w.message)})
+
+
+def _megadepth_list(root, n_pairs, rng):
+    """A MegaDepth scene-info npz (LoFTR's layout) over `n_pairs` pairs of
+    seeded smooth random gray JPEGs at long side 1600, landscape and portrait
+    in three shapes: returns (data dir, npz path)."""
+    import cv2
+
+    shapes = [(1200, 1600), (1600, 1200), (1066, 1600)]
+    n_img = 9
+    paths = np.empty(n_img, dtype=object)
+    intrs, poses = [], []
+    for i in range(n_img):
+        h, w = shapes[i % 3]
+        # smooth waves at a quarter of the size, then the full size (fast)
+        yy, xx = np.mgrid[0:h // 4, 0:w // 4].astype(np.float32)
+        img = np.zeros((h // 4, w // 4), np.float32)
+        for _ in range(12):
+            k = rng.normal(size=2) * 0.12
+            img += np.sin(k[0] * xx + k[1] * yy + rng.uniform(0, 2 * np.pi))
+        img = (img - img.min()) / (img.max() - img.min())
+        img = cv2.resize(img, (w, h)) + rng.normal(size=(h, w)).astype(np.float32) * 0.05
+        paths[i] = f"Undistorted_SfM/0015/images/{i}.jpg"
+        os.makedirs(f"{root}/Undistorted_SfM/0015/images", exist_ok=True)
+        check(cv2.imwrite(f"{root}/{paths[i]}", np.clip(img * 255, 0, 255).astype(np.uint8)),
+              f"pairs: cannot write {paths[i]}")
+        f = 1.2 * max(h, w)
+        intrs.append(np.array([[f, 0, w / 2], [0, f, h / 2], [0, 0, 1.0]]))
+        pose = np.eye(4)
+        pose[:3, :3] = cv2.Rodrigues(rng.normal(size=3) * 0.1)[0]
+        pose[:3, 3] = rng.normal(size=3)
+        poses.append(pose)
+    pair_infos = np.empty(n_pairs, dtype=object)
+    for i in range(n_pairs):
+        pair_infos[i] = (np.array([i % n_img, (i * 4 + 1) % n_img]), 0.3, np.zeros((0, 2)))
+    npz = f"{root}/0015_0.1_0.3.npz"
+    np.savez(npz, image_paths=paths, intrinsics=np.stack(intrs), poses=np.stack(poses),
+             pair_infos=pair_infos)
+    return root, npz
+
+
+# The pair phase's runs must reach these, so that the comparisons of matches
+# and poses cover something: keypoints matched a pair, and the share of pairs
+# with a pose, in every `evaluate` run and in a sub-chunk's w8pt modes. At
+# the seeded weights the matches of two float32 runs differ on 0.5-2% of
+# the keypoints either matched (ties that float32 rounding decides), so the
+# kernels' matches and probabilities are held against a float64 plain run:
+# no farther from it than 3 x plain float32's distance plus a slack (1% of
+# the matched keypoints; SINKHORN_TOL for the probabilities).
+MIN_MATCHES_A_PAIR = 8
+MIN_VALID_SHARE = 0.5
+MATCH_F64_FACTOR = 3.0
+MATCH_F64_SLACK = 0.01
+
+
+def _match_agreement(a, b):
+    """matches0 of two runs: (the share of keypoints either run matched on
+    which they agree, the number of such keypoints)."""
+    matched = (a >= 0) | (b >= 0)
+    n = int(matched.sum())
+    return (float((a == b)[matched].float().mean()) if n else 0.0), n
+
+
+def pairs_phase(workdir, card, n_pairs=16):
+    """The two-view pair benchmark (`cli/eval_pairs.py`) at full width on the
+    kernels, and the multi-view evaluation at K = 2048. Returns the launch
+    counts of the kernel runs."""
+    import copy
+    import types
+
+    import torch
+
+    from e2e_multi_view_matching_tpu_torch.cli import eval_multi_view as tev
+    from e2e_multi_view_matching_tpu_torch.cli import eval_pairs as tep
+    from e2e_multi_view_matching_tpu_torch.data.pairs import PairMatchingDataset
+    from e2e_multi_view_matching_tpu_torch.data.synthetic import (
+        SphereFieldScene,
+        fourier_texture_image,
+        write_scannet_format,
+    )
+    from e2e_multi_view_matching_tpu_torch.models.convert import init_like_flax_
+    from e2e_multi_view_matching_tpu_torch.models.matcher import (
+        MatcherConfig,
+        MultiViewMatcher,
+        default_gnn_layers,
+    )
+    from e2e_multi_view_matching_tpu_torch.models.superpoint import (
+        SuperPoint,
+        SuperPointConfig,
+    )
+    from e2e_multi_view_matching_tpu_torch.models.torch_import import import_superpoint
+
+    EB, SCAN = 8, 2  # eval_batch, eval_scan: the command line's defaults
+    per_sub = {"attn_fwd": 9, "cross_attn_fwd": 9, "sinkhorn_scaling": 1}
+    data, assets, ckpt = f"{workdir}/pairs_data", f"{workdir}/pairs_assets", f"{workdir}/pairs_runs"
+    total = {}
+
+    def add_launches(launches):
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+
+    # 1. ScanNet: a test scene with real ScanNet's color (1296x968 JPEG, read
+    # as 537 x 720 on a 640 x 768 bucket), a LoFTR-style test.npz, a seeded
+    # two-view matcher and an imported SuperPoint as a run
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(9)
+    scene = SphereFieldScene(rng, n_views=n_pairs + 1, H=480, W=640, f=577.0)
+    write_scannet_format(scene, data, scene_name="scene0707_00", split="test",
+                         image_fn=fourier_texture_image)
+    _scannet_color(f"{data}/scannet/scans_test/scene0707_00")
+    os.makedirs(f"{assets}/scannet_test_1500")
+    np.savez(f"{assets}/scannet_test_1500/test.npz",
+             name=np.asarray([(707, 0, i, i + 1) for i in range(n_pairs)]))
+    write_s = time.perf_counter() - t0
+
+    # seeded weights as flax draws them leave the two-view pair scores too flat
+    # for a match to clear the 0.2 threshold (at most one a pair at K = 1024):
+    # in this process the matchers take every mutual best match (threshold 0,
+    # as the JAX package's tests run them), so that every pair has ~40-130
+    # and the pose stages run on valid pairs; `main()` keeps 0.2
+    def two_view(att, sink):
+        return MultiViewMatcher(MatcherConfig(
+            gnn_layers=default_gnn_layers(9, 1), sinkhorn_iterations=100, conf_mlp=True,
+            multi_frame_matching=False, attention_impl=att, sinkhorn_impl=sink,
+            match_threshold=0.0))
+
+    kernels, plain = two_view("cuda", "cuda"), two_view("xla", "mxu")
+    init_like_flax_(kernels, torch.Generator().manual_seed(9))
+    plain.load_state_dict(kernels.state_dict())
+    exp_dir = f"{ckpt}/pairs"
+    os.makedirs(exp_dir)
+    torch.save({"epoch": 0, "model": kernels.state_dict(), "step": 0, "min_val_loss": 1.0,
+                "pose_match_ratio": 0.0}, f"{exp_dir}/model.ckpt")
+    sp_state = import_superpoint(_upstream_superpoint(np.random.default_rng(10)))
+    torch.save(sp_state, f"{exp_dir}/superpoint.ckpt")
+
+    text, cli_wall = _run_cli("eval_pairs", [
+        "--data_dir", data, "--checkpoint_dir", ckpt, "--exp_name", "pairs", "--dataset",
+        "scannet", "--assets_dir", assets, "--eval_mode", "w8pt_ba"], f"{workdir}/pairs_eval.log")
+    with open(f"{exp_dir}/two_view_w8pt_ba_scannet.json") as f:
+        cli_aucs = json.load(f)
+    check(sorted(cli_aucs) == ["AUC@10deg", "AUC@20deg", "AUC@5deg"]
+          and all(math.isfinite(v) for v in cli_aucs.values()),
+          f"pairs: eval_pairs wrote {cli_aucs}")
+
+    def superpoint(K, nms, thresh):
+        sp = SuperPoint(SuperPointConfig(nms_radius=nms, keypoint_threshold=thresh,
+                                         max_keypoints=K, remove_borders=0,
+                                         fill_with_random_keypoints=False))
+        sp.load_state_dict(sp_state)
+        return sp
+
+    def run(sp, matcher, samples, mode, kernel_run):
+        """`evaluate` over `samples` (decoded): pairs/s, failures, signatures,
+        and the kernels' launches, which must be exact on the kernels."""
+        opt = types.SimpleNamespace(eval_mode=mode, max_pairs=None, eval_batch=EB,
+                                    eval_scan=SCAN, shape_bucket=128, compute_dtype="float32")
+        torch.cuda.synchronize()
+        _reset_launches()
+        t0 = time.perf_counter()
+        errors, failures, n_sig = tep.evaluate(opt, sp, matcher, samples)
+        dt = time.perf_counter() - t0
+        launches = _launches()
+        n_sub, want_sig = _pair_grid(samples, EB, SCAN)
+        where = f"pairs ({mode}, {'kernels' if kernel_run else 'plain'})"
+        check(len(errors) == len(samples) and int(np.isfinite(errors).sum())
+              == len(samples) - failures, f"{where}: errors {errors}, {failures} failures")
+        check(n_sig == want_sig, f"{where}: {n_sig} signatures, expected {want_sig}")
+        check(len(samples) - failures >= MIN_VALID_SHARE * len(samples),
+              f"{where}: {failures} of {len(samples)} pairs without a pose")
+        if kernel_run:
+            want = {**{k: 0 for k in launches}, **{k: v * n_sub for k, v in per_sub.items()}}
+            check(launches == want, f"{where}: launched {launches}, expected {want}")
+            add_launches(launches)
+        return {"pairs_per_s": len(samples) / dt, "seconds": dt, "failures": failures,
+                "pairs": len(samples),
+                "signatures": n_sig, "sub_chunks": n_sub,
+                "median_error_deg": float(np.median(errors))}
+
+    def sub_chunk_checks(sp, samples, tag):
+        """One sub-chunk of 8 same-bucket pairs: the matches and log
+        assignment of kernels and plain float32 against plain float64 on the
+        same SuperPoint outputs, the pairs with a pose and their finiteness
+        in the w8pt modes, no host sync inside a w8pt sub-chunk, and the
+        stage times (w8pt_ba)."""
+        args = _pair_sub_chunk(samples)
+        n = len(samples)
+
+        def wall(fn, reps=3):
+            fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                out = fn()
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) / reps * 1e3, out
+
+        with torch.inference_mode():
+            sp_ms, (sp0, sp1) = wall(lambda: (sp(args[0], args[3]), sp(args[1], args[4])))
+            kpts = torch.stack([sp0["keypoints"], sp1["keypoints"]], 1)
+            m_in = (kpts, torch.stack([sp0["scores"], sp1["scores"]], 1),
+                    torch.stack([sp0["descriptors"], sp1["descriptors"]], 1), args[2])
+            m_ms, out_k = wall(lambda: kernels(*m_in))
+            out_p = plain(*m_in)
+            out_r = copy.deepcopy(plain).double()(*(x.double() for x in m_in))
+            m_k, m_p, m_r = (o["matches0"][:, 0] for o in (out_k, out_p, out_r))
+            agree, n_matched = _match_agreement(m_k, m_p)
+            agree_k, _ = _match_agreement(m_k, m_r)
+            agree_p, _ = _match_agreement(m_p, m_r)
+            z_r = out_r["log_assignment"].float()
+            err_k = _prob_err(out_k["log_assignment"], z_r)
+            err_p = _prob_err(out_p["log_assignment"], z_r)
+            syncs, finite, n_valid = {}, {}, {}
+            for mode in ("w8pt", "w8pt_ba", "w8pt_irls_ba"):
+                run_sub = lambda: tep.infer_pose_subchunk(sp, kernels, mode, *args)  # noqa: E731
+                T, valid = run_sub()
+                finite[mode] = bool(torch.isfinite(T[valid]).all())
+                n_valid[mode] = int(valid.sum())
+                syncs[mode] = _host_syncs(run_sub)
+            matches, conf = out_k["matches0"][:, 0], out_k["conf_scores"][:, 0]
+            conf_w = torch.where(matches >= 0, conf, 0.0)
+            mk1 = torch.gather(kpts[:, 1], 1, matches.clamp(min=0).long()[..., None].expand(
+                -1, -1, 2))
+            pose_ms, _ = wall(lambda: tep.pose_w8pt_batch("w8pt_ba", kpts[:, 0], mk1, args[5],
+                                                          args[6], conf_w))
+            busy = _device_busy(lambda: tep.infer_pose_subchunk(sp, kernels, "w8pt_ba", *args),
+                                groups=EVAL_GROUPS)
+        n_k, n_p = int((m_k >= 0).sum()), int((m_p >= 0).sum())
+        limit = MATCH_F64_FACTOR * (1 - agree_p) + MATCH_F64_SLACK
+        err_limit = MATCH_F64_FACTOR * err_p + SINKHORN_TOL
+        check(min(n_k, n_p) >= MIN_MATCHES_A_PAIR * n, f"pairs ({tag}): {n_k} (kernels) and "
+              f"{n_p} (plain) matches in {n} pairs, fewer than {MIN_MATCHES_A_PAIR} a pair")
+        check(1 - agree_k <= limit, f"pairs ({tag}): the kernels' matches differ from float64's "
+              f"on {1 - agree_k} of the matched keypoints, plain float32's on {1 - agree_p} "
+              f"(limit {limit})")
+        check(err_k <= err_limit, f"pairs ({tag}): the kernels' probabilities differ from "
+              f"float64's by {err_k}, plain float32's by {err_p} (limit {err_limit})")
+        check(float((m_k == m_p).float().mean()) >= 0.99,
+              f"pairs ({tag}): matches0 agreement over all keypoints below 0.99")
+        check(min(n_valid.values()) >= MIN_VALID_SHARE * n,
+              f"pairs ({tag}): valid pairs {n_valid} of {n}")
+        check(all(finite.values()), f"pairs ({tag}): non-finite poses of valid pairs {finite}")
+        check(not any(syncs.values()), f"pairs ({tag}): host syncs in a sub-chunk {syncs}")
+        return {"matches_kernels": n_k, "matches_plain": n_p, "matches_f64": int((m_r >= 0).sum()),
+                "matched_keypoints": n_matched,
+                "matches0_agreement_over_matched": {
+                    "kernels_plain": agree, "kernels_f64": agree_k, "plain_f64": agree_p,
+                    "limit_disagreement": limit},
+                "matches0_agreement_all_keypoints": float((m_k == m_p).float().mean()),
+                "prob_err_vs_f64": {"kernels": err_k, "plain": err_p, "limit": err_limit},
+                "valid_pairs": n_valid, "poses_finite_where_valid": finite,
+                "host_syncs_in_sub_chunk": syncs,
+                "sub_chunk_pairs": len(samples), "superpoint_ms": sp_ms, "matcher_ms": m_ms,
+                "pose_ms": pose_ms, **busy}
+
+    dataset = PairMatchingDataset(f"{data}/scannet", [f"{assets}/scannet_test_1500/test.npz"],
+                                  720, "scannet")
+    t0 = time.perf_counter()
+    samples = [dataset[i] for i in range(len(dataset))]
+    decode_s = (time.perf_counter() - t0) / len(samples)
+    check(all(s["image0"].shape == (537, 720, 1) for s in samples),
+          f"pairs: ScanNet frames of shape {samples[0]['image0'].shape}")
+    sp = superpoint(1024, 4, 0.001)
+    run(sp, kernels, samples[:EB], "w8pt_ba", False)  # warm-up: cuDNN plans, allocator
+    run(sp, plain, samples[:EB], "w8pt_ba", False)
+    scannet = {mode: run(sp, kernels, samples, mode, True) for mode in tep.EVAL_MODES}
+    scannet["plain_w8pt_ba"] = run(sp, plain, samples, "w8pt_ba", False)
+    scannet_sub = sub_chunk_checks(sp, samples[:EB], "ScanNet")
+
+    # 2. MegaDepth format at K = 2048: three shapes at long side 1600, so that
+    # chunks of different bucket pairs interleave
+    t0 = time.perf_counter()
+    md_dir, md_npz = _megadepth_list(f"{workdir}/pairs_megadepth", n_pairs,
+                                     np.random.default_rng(11))
+    md_write_s = time.perf_counter() - t0
+    md_set = PairMatchingDataset(md_dir, [md_npz], 1600, "megadepth")
+    t0 = time.perf_counter()
+    md_samples = [md_set[i] for i in range(len(md_set))]
+    md_decode_s = (time.perf_counter() - t0) / len(md_samples)
+    sp2 = superpoint(2048, 3, 0.005)
+    run(sp2, kernels, md_samples[:EB], "w8pt_ba", False)  # warm-up
+    megadepth = {"w8pt_ba": run(sp2, kernels, md_samples, "w8pt_ba", True),
+                 "plain_w8pt_ba": run(sp2, plain, md_samples, "w8pt_ba", False)}
+    check(megadepth["w8pt_ba"]["signatures"] >= 2,
+          f"pairs: MegaDepth pairs on {megadepth['w8pt_ba']['signatures']} bucket pairs")
+    first = md_samples[0]["image0"].shape, md_samples[0]["image1"].shape
+    same = [d for d in md_samples if (d["image0"].shape, d["image1"].shape) == first][:EB]
+    megadepth_sub = sub_chunk_checks(sp2, same, "MegaDepth")
+    del sp2, md_samples
+    torch.cuda.empty_cache()
+
+    # 3. the multi-view evaluation at MegaDepth's K = 2048: V = 5, one chunk of
+    # 8 tuples, MegaDepth's schedule 9 x (self + cross) (`apply_dataset_defaults`)
+    mv = MultiViewMatcher(MatcherConfig(
+        gnn_layers=default_gnn_layers(9, 1), sinkhorn_iterations=100, conf_mlp=True,
+        multi_frame_matching=True, attention_impl="cuda", sinkhorn_impl="cuda"))
+    init_like_flax_(mv, torch.Generator().manual_seed(12))
+    mv_opt = types.SimpleNamespace(tuple_size=5, max_tuples=None, eval_batch=8, eval_scan=1,
+                                   no_pipeline=False, compute_dtype="float32")
+    mv_data = _dataset(8, seed=12)
+    sp5 = superpoint(2048, 3, 0.005)
+    tev.evaluate(mv_opt, sp5, mv, mv_data)  # warm-up
+    torch.cuda.synchronize()
+    _reset_launches()
+    t0 = time.perf_counter()
+    mv_errors = tev.evaluate(mv_opt, sp5, mv, mv_data)
+    mv_s = time.perf_counter() - t0
+    mv_launches = _launches()
+    add_launches(mv_launches)
+    check(len(mv_errors[0]) == 80 and np.all(np.isfinite(mv_errors[1])),
+          "pairs: multi-view errors at K = 2048 missing or non-finite")
+    want = {**{k: 0 for k in mv_launches}, **per_sub}
+    check(mv_launches == want, f"pairs: multi-view at K = 2048 launched {mv_launches}, "
+          f"expected {want}")
+
+    emit({"phase": "pairs", "card": card,
+          "config": {"eval_batch": EB, "eval_scan": SCAN, "shape_bucket": 128,
+                     "gnn": "9x(self+cross)", "sinkhorn_iters": 100, "pairs": n_pairs},
+          "cli": {"wall_seconds": cli_wall, "aucs": cli_aucs},
+          "scannet": {"K": 1024, "frame": [537, 720], "bucket": [640, 768],
+                      "tree_write_seconds": write_s, "host_decode_seconds_per_pair": decode_s,
+                      "runs": scannet, "sub_chunk": scannet_sub},
+          "megadepth": {"K": 2048, "frames": [[1200, 1600], [1600, 1200], [1066, 1600]],
+                        "tree_write_seconds": md_write_s,
+                        "host_decode_seconds_per_pair": md_decode_s, "runs": megadepth,
+                        "sub_chunk": megadepth_sub},
+          "multi_view_K2048": {"V": 5, "tuples": 8, "image": [480, 640],
+                               "gnn": "9x(self+cross)", "tuples_per_s": 8 / mv_s,
+                               "seconds": mv_s, "launches": mv_launches},
+          "launches": total})
+    return total
+
+
+PHASES = ("kernel", "reference", "main_path", "train_path", "pose_path", "cli", "pairs")
 
 
 def main(argv=None):
@@ -1932,6 +2419,9 @@ def main(argv=None):
                 torch.cuda.empty_cache()
             if "cli" in phases:
                 by_path["cli_eval"] = cli_phase(workdir, card)
+                torch.cuda.empty_cache()
+            if "pairs" in phases:
+                by_path["pairs"] = pairs_phase(workdir, card)
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1

@@ -17,7 +17,10 @@ them into AUC@5/10/20 JSON. Chunks of `eval_scan x eval_batch` tuples are
 queued one ahead: the next chunk's device work is enqueued before the current
 chunk's extrinsics are copied to the host, the only sync of a chunk.
 
-Not ported yet: `--data_parallel` and the RANSAC init modes.
+Not ported yet: `--data_parallel` (ROADMAP Queue 1 item 3) and the RANSAC
+init modes of the multi-view pipeline (`--init_mode ransac|ransac_ba`,
+Queue 1 item 4), though the host RANSAC itself (`geom/ransac.py`) is there
+for `cli/eval_pairs.py`.
 """
 
 import argparse
@@ -30,7 +33,6 @@ import torch
 
 from e2e_multi_view_matching_tpu_torch.data.tuples import MatchingTupleDataset
 from e2e_multi_view_matching_tpu_torch.geom.metrics import pose_auc
-from e2e_multi_view_matching_tpu_torch.models.convert import init_like_flax_
 from e2e_multi_view_matching_tpu_torch.models.matcher import (
     MatcherConfig,
     MultiViewMatcher,
@@ -41,13 +43,15 @@ from e2e_multi_view_matching_tpu_torch.mvba.pipeline import (
     MultiViewPipelineConfig,
     multi_view_pose_device,
 )
-from e2e_multi_view_matching_tpu_torch.train.checkpoint import load_checkpoint, load_config
-from e2e_multi_view_matching_tpu_torch.train.step import TrainState
+from e2e_multi_view_matching_tpu_torch.train.checkpoint import load_config, load_eval_weights
 from e2e_multi_view_matching_tpu_torch.utils.config import (
     add_generic_arguments,
+    fetch_packed,
     get_exp_dir,
+    pad_to_grid,
     resolve_device,
     resolve_kernel_impls,
+    strict_float32,
     to_device,
 )
 
@@ -161,12 +165,7 @@ def evaluate(opt, superpoint, matcher, dataset, pipeline_cfg=MultiViewPipelineCo
         device: "cuda" by default; raises if no GPU is present.
     """
     device = resolve_device(device)
-    if getattr(opt, "compute_dtype", "float32") == "float32":
-        # f32 means f32: cuDNN runs float32 convolutions in TF32 by default on
-        # Ampere and later, which keeps ~3 decimal digits; the reference
-        # semantics are full float32 for SuperPoint and the matcher
-        torch.backends.cudnn.allow_tf32 = False
-        torch.backends.cuda.matmul.allow_tf32 = False
+    strict_float32(opt)
     superpoint.to(device).eval()
     matcher.to(device).eval()
     pose_errors = ([], [], [])
@@ -179,8 +178,7 @@ def evaluate(opt, superpoint, matcher, dataset, pipeline_cfg=MultiViewPipelineCo
     def dispatch(lo):
         """Enqueue one chunk on the device; returns (samples, device extrinsics)."""
         samples = [dataset[i] for i in range(lo, min(lo + chunk_len, n))]
-        S = -(-len(samples) // eval_batch)
-        padded = samples + [samples[-1]] * (S * eval_batch - len(samples))
+        padded, S = pad_to_grid(samples, eval_batch)
         images = np.stack([s["images"] for s in padded])
         images = to_device(images.reshape((S, eval_batch) + images.shape[1:]), device)
         intr = np.stack([s["intr"][:, :3, :3] for s in padded])
@@ -204,7 +202,7 @@ def evaluate(opt, superpoint, matcher, dataset, pipeline_cfg=MultiViewPipelineCo
                     in_flight = dispatch(chunk_starts[ci + 1])
             else:
                 samples, extr_dev = dispatch(lo)
-            extr_b = extr_dev.cpu().numpy().reshape(-1, V, 4, 4)[:len(samples)]
+            extr_b = fetch_packed([extr_dev])[0].reshape(-1, V, 4, 4)[:len(samples)]
             for sample, extr in zip(samples, extr_b):
                 for e_pose, e_t, e_r in _pair_errors(sample, extr, V):
                     pose_errors[0].append(e_pose)
@@ -240,27 +238,7 @@ def main(argv=None):
         attention_impl=opt.attention_impl, sinkhorn_impl=opt.sinkhorn_impl,
         compute_dtype=opt.compute_dtype,
     ))
-    # weights the files do not hold (a stage-1 run has no conf MLP) keep a
-    # seeded draw
-    g = torch.Generator().manual_seed(0)
-    init_like_flax_(matcher, g)
-    _, _, _, info = load_checkpoint(exp_dir, TrainState(matcher, optimizer=None),
-                                    model_id=None, load_opt_state=False)
-    if info["missing"]:
-        log.warning("model.ckpt lacks %s: seeded random values", info["missing"])
-    sp_path = os.path.join(exp_dir, "superpoint.ckpt")
-    if os.path.exists(sp_path):
-        superpoint.load_state_dict(torch.load(sp_path, map_location="cpu",
-                                              weights_only=True))
-    elif not opt.allow_random_superpoint:
-        raise FileNotFoundError(
-            f"SuperPoint weights not found: {sp_path}. A benchmark run with "
-            "random detector weights is meaningless; import pretrained weights "
-            "(models/torch_import.py) or pass --allow_random_superpoint."
-        )
-    else:
-        log.warning("superpoint.ckpt absent; using RANDOM SuperPoint weights")
-        init_like_flax_(superpoint, g)
+    load_eval_weights(exp_dir, superpoint, matcher, opt.allow_random_superpoint)
 
     dataset_dir = os.path.join(opt.data_dir, opt.dataset)
     test_dataset = MatchingTupleDataset(

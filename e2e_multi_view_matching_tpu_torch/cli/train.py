@@ -70,6 +70,7 @@ from e2e_multi_view_matching_tpu_torch.utils.config import (
     apply_dataset_defaults,
     get_exp_dir,
     resolve_device,
+    strict_float32,
     to_device,
 )
 from e2e_multi_view_matching_tpu_torch.utils.tblog import StepProfiler, TBWriter
@@ -199,10 +200,7 @@ def train(opt, train_batches, val_batches, device="cuda"):
 
 def _train_loop(opt, exp_dir, resume, train_batches, val_batches, device):
     """`train` on a settled `opt` (see `setup_run`)."""
-    if getattr(opt, "compute_dtype", "float32") == "float32":
-        # f32 means f32: no TF32 in cuDNN convolutions or matmuls
-        torch.backends.cudnn.allow_tf32 = False
-        torch.backends.cuda.matmul.allow_tf32 = False
+    strict_float32(opt)
     tb = TBWriter(opt.checkpoint_dir, opt.exp_name, enabled=not opt.no_tensorboard)
     if opt.profile_steps:
         p_start, p_end = (int(x) for x in opt.profile_steps.split(","))

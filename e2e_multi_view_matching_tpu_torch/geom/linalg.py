@@ -209,7 +209,10 @@ def _ii_seed(n, dtype, device):
     seed = _II_SEED.get(n)
     if seed is None:
         seed = np.sin(1.0 + 2.7 * np.arange(n)) / np.sqrt(n)
-    return torch.as_tensor(np.asarray(seed), dtype=dtype, device=device)
+    # a cached tensor made under torch.inference_mode (the eval loops) could
+    # not be saved for a later backward (training): make it a normal tensor
+    with torch.inference_mode(False):
+        return torch.as_tensor(np.asarray(seed), dtype=dtype, device=device)
 
 
 def _ii_step(v_prev, w):
@@ -287,7 +290,8 @@ def _jacobi_indices(n, device):
         p = np.asarray([a for a, _ in pairs])
         q = np.asarray([b for _, b in pairs])
         flat = np.concatenate([p * n + p, q * n + q, p * n + q, q * n + p])
-        out.append(tuple(torch.as_tensor(x, device=device) for x in (p, q, flat)))
+        with torch.inference_mode(False):  # cached: see _ii_seed
+            out.append(tuple(torch.as_tensor(x, device=device) for x in (p, q, flat)))
     return tuple(out)
 
 

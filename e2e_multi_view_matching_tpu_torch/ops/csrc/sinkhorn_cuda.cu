@@ -45,8 +45,14 @@
 //   end; the stashed U[:, t] and V[:, t-1:t+1] rows are the only per-step
 //   reads, staged while the cluster waits at its barrier. !RES (the 1025 x
 //   1025 shapes): rows stream from device memory straight into registers (a
-//   row is consumed by the warp that loads it), and n_clusters is chosen so
-//   that the matrices in flight (K; C; C and G) stay inside the 50 MB L2.
+//   row is consumed by the warp that loads it); sinkhorn_log and
+//   sinkhorn_bwd choose n_clusters so that the matrices in flight (C; C and
+//   G) stay inside the 50 MB L2, sinkhorn_scaling takes a cluster a pair, as
+//   many as fit (faster on the H100 than the L2 budget's count).
+//   All three take N <= 1056 (33 columns a lane); sinkhorn_scaling alone
+//   also takes N <= 2080 (the 2049 x 2049 pair matrices of K = 2048), in a
+//   wide streamed instantiation that keeps its column sums in shared memory
+//   (see scaling_cluster_kernel).
 // * The plan (CS, RES, n_clusters, KC, shared bytes) is made in
 //   ops/sinkhorn_cuda.py; the C side checks it against its own layout and
 //   cudaOccupancyMaxActiveClusters and returns a non-zero code where the
@@ -145,6 +151,9 @@ __device__ __forceinline__ void lse_merge(float& m, float& z, float y, float w) 
 
 constexpr int CS_MAX = 8;         // the largest cluster the plan asks for
 constexpr int KC_STREAMED = 33;   // columns a lane when streamed: N <= 1056
+// columns a lane of the wide scaling kernel (streamed only): N <= 2080, the
+// pair matrices of K = 2048 keypoints
+constexpr int KC_WIDE = 65;
 
 __host__ __device__ constexpr int round4(int x) { return (x + 3) & ~3; }
 
@@ -163,6 +172,14 @@ __host__ __device__ constexpr Layout scaling_layout(bool res, int band, int N) {
   const int NP = round4(N), w = res ? round4(band * N + 3) : 0, st = w + CW * NP;
   return {0, 0, w, st, st + CS_MAX * NP, st + (CS_MAX + 4) * NP, st + (CS_MAX + 6) * NP,
           st + (CS_MAX + 9) * NP, st + (CS_MAX + 9) * NP + 3 * round4(band)};
+}
+
+// The wide scaling kernel's (streamed, kc = KC_WIDE): as scaling_layout's,
+// but the warps' column sums are the lanes' accumulators and the gathered
+// partials reuse them, so it has no stage of its own.
+__host__ __device__ constexpr Layout scaling_wide_layout(int band, int N) {
+  const int NP = round4(N), pt = CW * NP;
+  return {0, 0, 0, 0, pt, pt + 4 * NP, pt + 6 * NP, pt + 9 * NP, pt + 9 * NP + 3 * round4(band)};
 }
 
 __host__ __device__ constexpr Layout bwd_layout(bool res, int band, int N) {
@@ -250,6 +267,29 @@ __device__ __forceinline__ void gather_partials(cg::cluster_group& cluster, floa
   __syncthreads();
 }
 
+// The 16 warps' rows of wsum (CW x NP), summed (or maxed) in warp order,
+// into col[j]; returns once every thread of the block has them.
+__device__ __forceinline__ void warp_rows_to_columns(const float* wsum, float* col, int N,
+                                                     bool take_max) {
+  const int NP = round4(N);
+  for (int j = threadIdx.x; j < N; j += CT) {
+    float s = take_max ? -INFINITY : 0.f;
+#pragma unroll
+    for (int w = 0; w < CW; ++w) s = take_max ? fmaxf(s, wsum[w * NP + j]) : s + wsum[w * NP + j];
+    col[j] = s;
+  }
+  __syncthreads();
+}
+
+// The wide scaling kernel's column sums: the lane's slots (32 apart) of its
+// warp's row of wsum, those inside N set to v.
+template <int KC>
+__device__ __forceinline__ void fill_lane_slots(float* al, int kv, float v) {
+#pragma unroll
+  for (int k = 0; k < KC; ++k)
+    if (k < kv) al[32 * k] = v;
+}
+
 // The 16 warps' column sums (or maxima) of their lanes' acc, summed in warp
 // order, into col[j] (through wsum, CW x NP).
 template <int KC>
@@ -260,13 +300,7 @@ __device__ __forceinline__ void warps_to_columns(const float (&acc)[KC], float* 
   for (int k = 0; k < KC; ++k)
     if (k < kv) wsum[warp * NP + lane + 32 * k] = acc[k];
   __syncthreads();
-  for (int j = threadIdx.x; j < N; j += CT) {
-    float s = take_max ? -INFINITY : 0.f;
-#pragma unroll
-    for (int w = 0; w < CW; ++w) s = take_max ? fmaxf(s, wsum[w * NP + j]) : s + wsum[w * NP + j];
-    col[j] = s;
-  }
-  __syncthreads();
+  warp_rows_to_columns(wsum, col, N, take_max);
 }
 
 // The 16 warps' column (max, sum) pairs (warp w's at row w of wm and wz,
@@ -312,6 +346,14 @@ __device__ __forceinline__ void cluster_column_sums(cg::cluster_group& cluster,
 // 16 warps' sums meet in shared memory, summed in warp order. RES with
 // KC <= 16 also keeps the lane's entries of b in registers for the
 // iteration, so that the pass reads each entry of the band once.
+//
+// The wide kernel (KC = KC_WIDE, streamed only, N <= 2080): a row's 65
+// entries a lane and 65 column sums would take 130 registers of the 128 a
+// thread has at 512 threads. So the row stays in registers, and the lane's
+// column sums (maxima in the exact iteration) live in its own slots of its
+// warp's row of wsum, a read and a write of shared memory an entry, added in
+// the same order as in registers; the 16 warps' rows meet as before, and
+// the gathered partials reuse wsum once they have.
 template <bool RES, int KC>
 __global__ void __launch_bounds__(CT, 1)
 scaling_cluster_kernel(const float* __restrict__ C, const float* __restrict__ log_mu,
@@ -319,6 +361,8 @@ scaling_cluster_kernel(const float* __restrict__ C, const float* __restrict__ lo
                        float* __restrict__ K, int B, int M, int N, int band,
                        int n_iters, int absorb_every, float norm) {
   constexpr bool B_REGS = RES && KC <= 16;
+  constexpr bool WIDE = KC > KC_STREAMED;
+  static_assert(!(RES && WIDE), "the wide kernel streams");
   cg::cluster_group cluster = cg::this_cluster();
   const int cs = (int)cluster.num_blocks();
   const int rank = (int)cluster.block_rank();
@@ -332,10 +376,10 @@ scaling_cluster_kernel(const float* __restrict__ C, const float* __restrict__ lo
   const int nq = rows > warp ? (rows - warp + CW - 1) / CW : 0;
   const int kv = (N - lane + 31) / 32;
   extern __shared__ __align__(16) float csm[];
-  const Layout L = scaling_layout(RES, band, N);
+  const Layout L = WIDE ? scaling_wide_layout(band, N) : scaling_layout(RES, band, N);
   float* mat = csm + L.mat;       // RES: the band of C, then of K, as a span
   float* wsum = csm + L.wsum;     // CW x NP: the warps' column sums
-  float* stage = csm + L.stage;   // CS_MAX x NP
+  float* stage = csm + L.stage;   // CS_MAX x NP (WIDE: wsum)
   float* part = csm + L.part;     // 2 parities x 2NP
   float* cmax = csm + L.col;      // NP: column max (first iteration)
   float* csum = cmax + NP;        // NP: column sums
@@ -348,8 +392,9 @@ scaling_cluster_kernel(const float* __restrict__ C, const float* __restrict__ lo
   const int n_absorb = (n_iters + absorb_every - 1) / absorb_every;
   const int n_scale = n_absorb * absorb_every - 1;  // scaling iterations
   int par = 0;
-  float x[KC], acc[KC];  // a row's entries, the lane's column sums
+  float x[KC], acc[WIDE ? 1 : KC];  // a row's entries, the lane's column sums
   float bq[B_REGS ? KC : 1];  // B_REGS: the lane's entries of b
+  float* al = wsum + warp * NP + lane;  // WIDE: the lane's column sums, 32 apart
 
   for (int pair = cid; pair < B; pair += n_clusters) {
     const float* Cp = C + ((size_t)pair * M + i0) * N;
@@ -367,8 +412,12 @@ scaling_cluster_kernel(const float* __restrict__ C, const float* __restrict__ lo
     // 1. exact log-domain iteration (v = 0): u by rows and the column max of
     // C + u; then the column sum of exp(C + u - max); merged over the
     // cluster as (max, sum) pairs
+    if constexpr (WIDE) {
+      fill_lane_slots<KC>(al, kv, -INFINITY);
+    } else {
 #pragma unroll
-    for (int k = 0; k < KC; ++k) acc[k] = -INFINITY;
+      for (int k = 0; k < KC; ++k) acc[k] = -INFINITY;
+    }
     for (int q = 0; q < nq; ++q) {
       const int r = warp + q * CW;
       load_lane_row(x, RES ? kb + r * N : Cp + (size_t)r * N, kv, -INFINITY);
@@ -383,21 +432,46 @@ scaling_cluster_kernel(const float* __restrict__ C, const float* __restrict__ lo
       const float ui = slogmu[r] - (logf(s) + mx);
       if (lane == 0) su[r] = ui;
 #pragma unroll
-      for (int k = 0; k < KC; ++k) acc[k] = fmaxf(acc[k], x[k] + ui);
+      for (int k = 0; k < KC; ++k) {
+        if constexpr (WIDE) {
+          if (k < kv) al[32 * k] = fmaxf(al[32 * k], x[k] + ui);
+        } else {
+          acc[k] = fmaxf(acc[k], x[k] + ui);
+        }
+      }
     }
-    warps_to_columns(acc, wsum, cmax, N, kv, true);
+    if constexpr (WIDE) {
+      __syncthreads();
+      warp_rows_to_columns(wsum, cmax, N, true);
+    } else {
+      warps_to_columns(acc, wsum, cmax, N, kv, true);
+    }
+    if constexpr (WIDE) {
+      fill_lane_slots<KC>(al, kv, 0.f);
+    } else {
 #pragma unroll
-    for (int k = 0; k < KC; ++k) acc[k] = 0.f;
+      for (int k = 0; k < KC; ++k) acc[k] = 0.f;
+    }
     for (int q = 0; q < nq; ++q) {
       const int r = warp + q * CW;
       load_lane_row(x, RES ? kb + r * N : Cp + (size_t)r * N, kv, 0.f);
       const float ui = su[r];
       const float* cm = cmax + lane;
 #pragma unroll
-      for (int k = 0; k < KC; ++k)
-        if (k < kv) acc[k] += expf((x[k] + ui) - cm[32 * k]);
+      for (int k = 0; k < KC; ++k) {
+        if constexpr (WIDE) {
+          if (k < kv) al[32 * k] += expf((x[k] + ui) - cm[32 * k]);
+        } else {
+          if (k < kv) acc[k] += expf((x[k] + ui) - cm[32 * k]);
+        }
+      }
     }
-    warps_to_columns(acc, wsum, csum, N, kv, false);
+    if constexpr (WIDE) {
+      __syncthreads();
+      warp_rows_to_columns(wsum, csum, N, false);
+    } else {
+      warps_to_columns(acc, wsum, csum, N, kv, false);
+    }
     {
       float* pp = part + par * 2 * NP;
       for (int j = tid; j < N; j += CT) {
@@ -432,8 +506,12 @@ scaling_cluster_kernel(const float* __restrict__ C, const float* __restrict__ lo
         __syncthreads();
       }
       if constexpr (B_REGS) load_lane_row(bq, sb, kv, 0.f);
+      if constexpr (WIDE) {
+        fill_lane_slots<KC>(al, kv, 0.f);
+      } else {
 #pragma unroll
-      for (int k = 0; k < KC; ++k) acc[k] = 0.f;
+        for (int k = 0; k < KC; ++k) acc[k] = 0.f;
+      }
       for (int q = 0; q < nq; ++q) {
         const int r = warp + q * CW;
         if (rebuild) {  // K = exp(C + u + v)
@@ -461,11 +539,25 @@ scaling_cluster_kernel(const float* __restrict__ C, const float* __restrict__ lo
         const float a = expf(slogmu[r]) / (s + kTiny);
         if (lane == 0) sa[r] = a;
 #pragma unroll
-        for (int k = 0; k < KC; ++k) acc[k] = fmaf(x[k], a, acc[k]);
+        for (int k = 0; k < KC; ++k) {
+          if constexpr (WIDE) {
+            if (k < kv) al[32 * k] = fmaf(x[k], a, al[32 * k]);
+          } else {
+            acc[k] = fmaf(x[k], a, acc[k]);
+          }
+        }
       }
-      cluster_column_sums(cluster, acc, wsum, part + par * 2 * NP, stage, N, kv, [&] {
-        if (RES && it + 1 < n_scale && rebuilds(it + 1)) fetch_span(mat, Cp, rows * N);
-      });
+      if constexpr (WIDE) {  // the warps' rows are the sums: merge, exchange, gather
+        float* pp = part + par * 2 * NP;
+        __syncthreads();
+        warp_rows_to_columns(wsum, pp, N, false);
+        cluster.sync();
+        gather_partials(cluster, pp, stage, N);
+      } else {
+        cluster_column_sums(cluster, acc, wsum, part + par * 2 * NP, stage, N, kv, [&] {
+          if (RES && it + 1 < n_scale && rebuilds(it + 1)) fetch_span(mat, Cp, rows * N);
+        });
+      }
       for (int j = tid; j < N; j += CT) {
         float s = 0.f;
         for (int q = 0; q < cs; ++q) s += stage[q * NP + j];
@@ -846,7 +938,10 @@ using LogKernel = void (*)(const float*, const float*, const float*, float*, flo
 // The instantiations the plan can name (kc: columns a lane); nullptr for any
 // other.
 ScalingKernel scaling_kernel_for(int res, int kc) {
-  if (!res) return kc == KC_STREAMED ? scaling_cluster_kernel<false, KC_STREAMED> : nullptr;
+  if (!res) {
+    if (kc == KC_WIDE) return scaling_cluster_kernel<false, KC_WIDE>;
+    return kc == KC_STREAMED ? scaling_cluster_kernel<false, KC_STREAMED> : nullptr;
+  }
   switch (kc) {
     case 4: return scaling_cluster_kernel<true, 4>;
     case 8: return scaling_cluster_kernel<true, 8>;
@@ -974,7 +1069,9 @@ int sinkhorn_scaling(const float* C, const float* log_mu, const float* log_nu,
   if (!kernel || N > 32 * kc) return -1;
   if (n_iters < 1 || absorb_every < 1) return -2;
   const int band = (M + cs - 1) / cs;
-  if (smem != (int)sizeof(float) * scaling_layout(resident != 0, band, N).total) return -5;
+  const Layout L = kc == KC_WIDE ? scaling_wide_layout(band, N)
+                                  : scaling_layout(resident != 0, band, N);
+  if (smem != (int)sizeof(float) * L.total) return -5;
   return launch_clusters(kernel, cs, n_clusters, smem, static_cast<cudaStream_t>(stream), C,
                          log_mu, log_nu, out, K, B, M, N, band, n_iters, absorb_every, norm);
 }

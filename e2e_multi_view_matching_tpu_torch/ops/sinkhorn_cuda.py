@@ -27,8 +27,10 @@ same bits. `cluster_plan` chooses their launch here, where the CPU tests
 reach it: the cluster size, whether the band stays in shared memory
 (resident) or streams from device memory, the number of persistent clusters,
 the columns a lane holds (the kernel instantiation) and the shared bytes.
-The kernels take N <= 1056 (33 columns a lane); a wider matrix raises
-`ValueError`.
+`sinkhorn_log` and `sinkhorn_bwd` take N <= 1056 (33 columns a lane), which
+every training shape is; `sinkhorn_scaling` takes N <= 2080 (65 columns a
+lane, streamed), the (2049, 2049) pair matrices of the MegaDepth and YFCC
+evaluations at K = 2048. A wider matrix raises `ValueError`.
 """
 
 import ctypes
@@ -59,6 +61,7 @@ CLUSTER_THREADS = 512  # a block
 CLUSTER_WARPS = CLUSTER_THREADS // 32
 CLUSTER_SIZES = (1, 2, 4, 8)  # blocks (SMs) a cluster, up to the portable maximum
 COLUMN_SLOTS = (4, 8, 13, 16, 33)  # columns a lane: N <= 32 x 33
+WIDE_SLOTS = 65  # sinkhorn_scaling only, streamed: N <= 32 x 65 = 2080
 SMEM_BYTES = 227 * 1024  # a block's shared memory on an H100
 L2_BUDGET_BYTES = 40e6  # streamed matrices in flight, inside the 50 MB L2
 # the cluster kernels, by their code in `sinkhorn_cluster_info`
@@ -104,7 +107,8 @@ def _smem_floats(kind, resident, band, N, kc):
     NP = _round4(N)
     fixed = CLUSTER_WARPS + CLUSTER_SIZES[-1]
     if kind == "scaling":  # the band as a span; 2 x (max, sum), column (max, sum),
-        # b v log_nu; u a log_mu
+        # b v log_nu; u a log_mu; the wide kernel gathers into the warps' sums
+        fixed -= CLUSTER_SIZES[-1] if kc == WIDE_SLOTS else 0
         return (_round4(band * N + 3) if resident else 0) + (fixed + 9) * NP + 3 * _round4(band)
     if kind == "log":  # the band in rows of 32 kc; the warps' (max, sum) vectors;
         # 2 x (max, sum), v (32 kc), log_nu; u log_mu
@@ -118,6 +122,11 @@ def _round4(x):
     return -(-x // 4) * 4
 
 
+def max_columns(kind):
+    """The widest N the cluster kernel `kind` takes."""
+    return 32 * (WIDE_SLOTS if kind == "scaling" else COLUMN_SLOTS[-1])
+
+
 def cluster_plan(kind, B, M, N, capacity=None):
     """Launch plan of the cluster kernel `kind` ("scaling", "bwd" or "log")
     for B pair matrices of M x N.
@@ -126,10 +135,17 @@ def cluster_plan(kind, B, M, N, capacity=None):
     band (K for scaling; C and G for the sweep; C for the log domain) fits the
     block's shared memory: with the smallest such cluster, so that the most
     pairs are in flight. Else streamed from device memory, with up to 8 blocks a cluster
-    (two rows a warp at least) and persistent clusters few enough that the
-    matrices in flight stay inside the L2 budget. `capacity` is the number of
-    such clusters the card holds at once (`sinkhorn_cluster_info`); None on
-    the CPU, where there is no card to ask.
+    (two rows a warp at least). Streamed, the log domain and the sweep keep
+    few enough persistent clusters that the matrices in flight stay inside
+    the L2 budget; the scaling domain (the wide kernel, N > 1056, always
+    streams) takes a cluster a pair, as many as fit, as resident plans do:
+    all 15 that fit solved 80 x 1025 x 1025 in 15.03 ms against 15.71 at
+    the budget's 9, and 8 and 80 x 2049 x 2049 in 7.66 and 58.7 ms against
+    26.0 and 259.6 at its 2, with the same bits (NVIDIA H100 80GB HBM3 at
+    700 W, `tools/torch_sinkhorn_times.py --kernel scaling
+    --cluster_counts`). `capacity` is the number of such clusters the card
+    holds at once (`sinkhorn_cluster_info`); None on the CPU, where there is
+    no card to ask.
 
     Returns a dict: kind, cluster_size, band, resident, n_clusters,
     column_slots (the columns a lane holds), smem_bytes, workspace
@@ -137,26 +153,27 @@ def cluster_plan(kind, B, M, N, capacity=None):
     """
     if kind not in CLUSTER_KINDS:
         raise ValueError(f"unknown cluster kernel {kind!r}")
+    if N > max_columns(kind):
+        raise ValueError(f"sinkhorn_{kind} takes N <= {max_columns(kind)}, got {N}")
     # columns a lane: resident the smallest instantiation, streamed the largest
-    kc = next((k for k in COLUMN_SLOTS if 32 * k >= N), None)
-    if kc is None:
-        raise ValueError(f"sinkhorn_{kind} takes N <= {32 * COLUMN_SLOTS[-1]}, got {N}")
+    # (N > 1056: the wide one)
+    kc = next((k for k in COLUMN_SLOTS if 32 * k >= N), WIDE_SLOTS)
 
     def fits(cs):
         return 4 * _smem_floats(kind, True, -(-M // cs), N, kc) <= SMEM_BYTES
 
-    cs = next((c for c in CLUSTER_SIZES if fits(c)), None)
+    cs = None if kc == WIDE_SLOTS else next((c for c in CLUSTER_SIZES if fits(c)), None)
     resident = cs is not None
     if not resident:  # two rows a warp at least
         cs = max(1, min(CLUSTER_SIZES[-1], M // (2 * CLUSTER_WARPS)))
-        kc = COLUMN_SLOTS[-1]
+        kc = max(kc, COLUMN_SLOTS[-1])
     band = -(-M // cs)
     smem = 4 * _smem_floats(kind, resident, band, N, kc)
     if smem > SMEM_BYTES:
         raise ValueError(f"sinkhorn_{kind}: N = {N} too wide for a block's shared memory")
-    if resident:
+    if resident or kind == "scaling":
         n = B
-    else:  # K for scaling; C and G for the sweep; C for the log domain
+    else:  # C and G for the sweep; C for the log domain
         in_flight = (2 if kind == "bwd" else 1) * 4 * M * N
         n = max(1, min(B, int(L2_BUDGET_BYTES // in_flight)))
     if capacity is not None:

@@ -15,9 +15,12 @@ not read here; `models/convert.py` bridges the weights.
 """
 
 import json
+import logging
 import os
 
 import torch
+
+log = logging.getLogger("checkpoint")
 
 
 def _ckpt_name(model_id, file_suffix="model"):
@@ -74,6 +77,40 @@ def load_checkpoint(exp_dir, state, model_id=None, file_suffix="model",
             pass
     return state, int(raw.get("epoch", 0)), float(raw.get("min_val_loss", 1e6)), {
         "missing": missing, "unexpected": unexpected}
+
+
+def load_eval_weights(exp_dir, superpoint, matcher, allow_random_superpoint=False, seed=0):
+    """The weights of an evaluation run, for both eval command lines.
+
+    The matcher reads `<exp_dir>/model.ckpt` non-strictly: weights the file
+    lacks (a stage-1 run has no conf MLP) keep a seeded draw as flax draws
+    them. SuperPoint reads `<exp_dir>/superpoint.ckpt`, a state dict of the
+    port's `SuperPoint` (e.g. from `models/torch_import.py`); without it a
+    benchmark would run a random detector, so it raises FileNotFoundError
+    unless `allow_random_superpoint`, which keeps seeded random weights.
+    Returns the names model.ckpt lacks.
+    """
+    from e2e_multi_view_matching_tpu_torch.models.convert import init_like_flax_
+    from e2e_multi_view_matching_tpu_torch.train.step import TrainState
+
+    g = torch.Generator().manual_seed(seed)
+    init_like_flax_(matcher, g)
+    _, _, _, info = load_checkpoint(exp_dir, TrainState(matcher, optimizer=None),
+                                    model_id=None, load_opt_state=False)
+    if info["missing"]:
+        log.warning("model.ckpt lacks %s: seeded random values", info["missing"])
+    sp_path = os.path.join(exp_dir, "superpoint.ckpt")
+    if os.path.exists(sp_path):
+        superpoint.load_state_dict(torch.load(sp_path, map_location="cpu", weights_only=True))
+    elif not allow_random_superpoint:
+        raise FileNotFoundError(
+            f"SuperPoint weights not found: {sp_path}. A benchmark run with "
+            "random detector weights is meaningless; import pretrained weights "
+            "(models/torch_import.py) or pass --allow_random_superpoint.")
+    else:
+        log.warning("superpoint.ckpt absent; using RANDOM SuperPoint weights")
+        init_like_flax_(superpoint, g)
+    return info["missing"]
 
 
 def save_config(exp_dir, cfg_dict):

@@ -57,6 +57,16 @@ def resolve_kernel_impls(opt, device):
     return opt
 
 
+def strict_float32(opt):
+    """f32 means f32: unless `opt.compute_dtype` asks for another type, turn
+    off TF32, in which cuDNN runs float32 convolutions by default on Ampere
+    and later (~3 decimal digits); the reference semantics are full float32
+    for SuperPoint and the matcher."""
+    if getattr(opt, "compute_dtype", "float32") == "float32":
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+
+
 def to_device(arr, device):
     """float32 numpy array -> tensor on `device`; through pinned memory on a
     GPU, so that the copy is asynchronous and waits for no queued work."""
@@ -64,6 +74,27 @@ def to_device(arr, device):
     if torch.device(device).type == "cuda":
         return t.pin_memory().to(device, non_blocking=True)
     return t.to(device)
+
+
+def pad_to_grid(items, eval_batch):
+    """`items` (a chunk of samples) padded with its last one up to a full grid
+    of S sub-chunks of `eval_batch`, so that every sub-chunk has one shape;
+    the padding is sliced off after the fetch. Returns (padded, S)."""
+    S = -(-len(items) // eval_batch)
+    return items + [items[-1]] * (S * eval_batch - len(items)), S
+
+
+def fetch_packed(tensors):
+    """Device tensors -> numpy arrays of the same shapes through ONE
+    device-to-host copy (a chunk's only sync): flattened to float32 and
+    concatenated on the device, copied, split on the host. Integer tensors
+    must be exact in float32 (|x| < 2**24); they come back as float32."""
+    flat = torch.cat([t.reshape(-1).to(torch.float32) for t in tensors]).cpu().numpy()
+    out, lo = [], 0
+    for t in tensors:
+        out.append(flat[lo:lo + t.numel()].reshape(tuple(t.shape)))
+        lo += t.numel()
+    return out
 
 
 def get_exp_dir(checkpoint_dir, exp_name):

@@ -133,6 +133,22 @@ class TestLinalg:
         same_up_to_sign(tlin.smallest_eigvec_ii(t(G)).numpy(),
                         np.asarray(jlin.smallest_eigvec_ii(jnp.asarray(G))), atol=1e-4)
 
+    def test_cached_constants_serve_inference_and_autograd(self, rng):
+        """The cached inverse-iteration seeds and Jacobi indices are normal
+        tensors even when first made under torch.inference_mode (as the eval
+        loops run): a later call under autograd (training, in the same
+        process) can save them for its backward."""
+        tlin._ii_seed.cache_clear()
+        tlin._jacobi_indices.cache_clear()
+        G = t(random_spd(rng, 3, 4, null_dims=1))
+        A = t(random_spd(rng, 6, 4))
+        with torch.inference_mode():
+            tlin.smallest_eigvec_ii(G)
+            tlin.jacobi_eigh(A)
+        G, A = G.clone().requires_grad_(), A.clone().requires_grad_()
+        (tlin.smallest_eigvec_ii(G).sum() + tlin.jacobi_eigh(A)[0].sum()).backward()
+        assert torch.isfinite(G.grad).all() and torch.isfinite(A.grad).all()
+
     def test_small_inverses_and_psd_solve(self, rng):
         M3 = rng.normal(size=(8, 3, 3)).astype(np.float32) + 3 * np.eye(3, dtype=np.float32)
         M4 = rng.normal(size=(8, 4, 4)).astype(np.float32) + 4 * np.eye(4, dtype=np.float32)

@@ -16,6 +16,7 @@ torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
 from e2e_multi_view_matching_tpu_torch.cli import eval_multi_view  # noqa: E402
+from e2e_multi_view_matching_tpu_torch.cli import eval_pairs  # noqa: E402
 from e2e_multi_view_matching_tpu_torch.cli import train as train_cli  # noqa: E402
 from e2e_multi_view_matching_tpu_torch.utils import config  # noqa: E402
 
@@ -43,7 +44,8 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     for name in ("train.step", "train.optim", "train.checkpoint", "train.losses",
                  "data.gt_matches", "data.synthetic", "cli.train", "utils.trackers",
                  "geom.linalg", "geom.eightpoint", "ops.attention_cuda", "data.tuples",
-                 "data.scannet", "data.sampling", "utils.tblog", "models.torch_import"):
+                 "data.scannet", "data.sampling", "utils.tblog", "models.torch_import",
+                 "cli.eval_pairs", "data.pairs", "geom.ransac"):
         assert f"e2e_multi_view_matching_tpu_torch.{name}" in result["modules"], name
     assert result["bad"] == [], f"the port pulled in {result['bad']}"
 
@@ -99,6 +101,9 @@ def test_entry_points_raise_without_a_gpu(monkeypatch):
                                 no_pipeline=False, compute_dtype="float32")
     with pytest.raises(RuntimeError, match="CUDA"):
         eval_multi_view.evaluate(opt, torch.nn.Identity(), torch.nn.Identity(), [])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        eval_pairs.evaluate(types.SimpleNamespace(eval_mode="w8pt_ba", max_pairs=None),
+                            torch.nn.Identity(), torch.nn.Identity(), [])
     with pytest.raises(RuntimeError, match="CUDA"):
         train_cli.train(train_cli.parse_args([]), None, None)
     assert config.resolve_device("cpu") == torch.device("cpu")

@@ -4,7 +4,9 @@ the stash) and `sinkhorn_bwd` on the card, and their launch plan on the CPU.
 The `cuda`-marked tests hold the kernels against their plain versions
 (`ops/sinkhorn.py::log_sinkhorn_mxu`, `log_sinkhorn_stash`,
 `log_sinkhorn_bwd`) at ragged shapes on both sides of the residency threshold
-(401 x 401 stays on chip, 1025 x 1025 streams from L2): probabilities 2e-4
+(401 x 401 stays on chip, 1025 x 1025 streams from L2), and `sinkhorn_scaling`
+also in its wide instantiation (2049 x 2049, the pair matrices of K = 2048,
+and a ragged 1537 x 2049, without spills): probabilities 2e-4
 (5e-4 at score scale 400), stashed duals 1e-4 (at score scale 400, 1e-4 of
 max(1, max |dual|): the duals reach ~1e3 there, where one float32 ulp is
 6e-5-1.2e-4), dscores 2e-4 of max(1, max |reference|), dalpha 2e-3; two runs
@@ -30,6 +32,8 @@ SOURCE = Path(sc.__file__).resolve().parent / "csrc" / "sinkhorn_cuda.cu"
 # score shapes (B, M, N) and scales; the couplings add the dustbin row and column
 SHAPES = [((3, 33, 29), 4.0), ((2, 127, 127), 4.0), ((4, 401, 401), 4.0),
           ((2, 401, 333), 4.0), ((2, 1025, 1025), 4.0), ((2, 40, 40), 400.0)]
+# sinkhorn_scaling only: N above 1056 (the wide instantiation)
+WIDE_SHAPES = [((8, 2048, 2048), 4.0), ((3, 1536, 2048), 4.0)]
 SINKHORN_DUAL_TOL = 1e-4  # stashed duals u_t, v_t (f32 reduction order over 100 iterations)
 
 
@@ -52,7 +56,7 @@ def _scores(cuda, shape, scale):
 
 @pytest.mark.cuda
 class TestClusterKernels:
-    @pytest.mark.parametrize("shape,scale", SHAPES)
+    @pytest.mark.parametrize("shape,scale", SHAPES + WIDE_SHAPES)
     def test_scaling_matches_plain(self, cuda, shape, scale):
         scores, _ = _scores(cuda, shape, scale)
         before = sc.launches["sinkhorn_scaling"]
@@ -63,6 +67,9 @@ class TestClusterKernels:
         assert _prob_err(z, z_ref) < (5e-4 if scale > 100 else 2e-4)
         assert torch.equal(z, sc.log_optimal_transport_cuda(scores, 1.0, 100))
         assert sc.launches["sinkhorn_scaling"] == before + 2
+        if shape[2] + 1 > 32 * sc.COLUMN_SLOTS[-1]:
+            plan = sc.kernel_plan("scaling", shape[0], shape[1] + 1, shape[2] + 1)
+            assert plan["column_slots"] == sc.WIDE_SLOTS and plan["local_bytes"] == 0
 
     @pytest.mark.parametrize("shape,scale", SHAPES)
     def test_bwd_matches_plain(self, cuda, shape, scale):
@@ -126,11 +133,12 @@ class TestClusterKernels:
         """At the paths' shapes the runtime fits the planned clusters; the
         resident kernels (the training and validation shape) keep every value
         in registers."""
-        for K, resident in ((400, True), (1024, False)):
+        shapes = ((400, True), (1024, False)) + (((2048, False),) if kind == "scaling" else ())
+        for K, resident in shapes:
             plan = sc.kernel_plan(kind, 80, K + 1, K + 1)
             assert plan["resident"] is resident
             assert 1 <= plan["n_clusters"] <= plan["clusters_that_fit"]
-            if resident:
+            if resident or K == 2048:
                 assert plan["local_bytes"] == 0
 
 
@@ -154,15 +162,35 @@ class TestPlan:
         assert plan["smem_bytes"] == smem
 
     @pytest.mark.parametrize("kind,n_clusters,workspace", [
-        ("scaling", 9, {"K": (80, 1025, 1025)}), ("bwd", 4, {}), ("log", 9, {})])
+        ("scaling", 80, {"K": (80, 1025, 1025)}), ("bwd", 4, {}), ("log", 9, {})])
     def test_streamed_at_1025(self, kind, n_clusters, workspace):
-        """Persistent clusters of 8: K or C (4.2 MB a pair), or C and G, of the
-        clusters stay inside the 40 MB L2 budget."""
+        """Clusters of 8. The log domain's C (4.2 MB a pair) and the sweep's
+        C and G of its persistent clusters stay inside the 40 MB L2 budget;
+        the scaling domain takes a cluster a pair, as many as the card holds
+        (all that fit were faster than the budget's count on the H100)."""
         plan = sc.cluster_plan(kind, 80, 1025, 1025)
         assert (plan["cluster_size"], plan["band"], plan["resident"]) == (8, 129, False)
         assert plan["n_clusters"] == n_clusters and plan["workspace"] == workspace
-        in_flight = (2 if kind == "bwd" else 1) * 4 * 1025 * 1025 * n_clusters
-        assert in_flight <= sc.L2_BUDGET_BYTES
+        if kind != "scaling":
+            in_flight = (2 if kind == "bwd" else 1) * 4 * 1025 * 1025 * n_clusters
+            assert in_flight <= sc.L2_BUDGET_BYTES
+        assert sc.cluster_plan(kind, 80, 1025, 1025, capacity=15)["n_clusters"] == min(
+            n_clusters, 15)
+
+    @pytest.mark.parametrize("N", [1057, 2049, 2080])
+    def test_scaling_streams_wide(self, N):
+        """Above 1056 columns `sinkhorn_scaling` takes the wide instantiation
+        (65 columns a lane), streamed in clusters of 8, whose column sums
+        and gathered partials share the warps' rows; a cluster a pair, as
+        at 1025."""
+        plan = sc.cluster_plan("scaling", 80, N, N)
+        assert (plan["cluster_size"], plan["resident"], plan["column_slots"]) == (8, False, 65)
+        assert plan["workspace"] == {"K": (80, N, N)} and plan["band"] == -(-N // 8)
+        assert plan["n_clusters"] == 80  # a cluster a pair, as many as the card holds
+        NP = -(-N // 4) * 4
+        assert plan["smem_bytes"] == 4 * (25 * NP + 3 * (-(-plan["band"] // 4) * 4))
+        assert sc.cluster_plan("scaling", 80, N, N, capacity=15)["n_clusters"] == 15
+        assert sc.cluster_plan("scaling", 3, N, N, capacity=15)["n_clusters"] == 3
 
     def test_capacity_caps_the_clusters(self):
         assert sc.cluster_plan("scaling", 80, 401, 401, capacity=16)["n_clusters"] == 16
@@ -184,12 +212,14 @@ class TestPlan:
         assert _source_constant("CT") == sc.CLUSTER_THREADS
         assert _source_constant("CS_MAX") == sc.CLUSTER_SIZES[-1]
         assert _source_constant("KC_STREAMED") == sc.COLUMN_SLOTS[-1]
+        assert _source_constant("KC_WIDE") == sc.WIDE_SLOTS
         for name in ("scaling_cluster_kernel", "bwd_cluster_kernel", "log_cluster_kernel"):
             cases = re.findall(rf"case (\w+): return {name}<true", SOURCE.read_text())
             assert {sc.COLUMN_SLOTS[-1] if k == "KC_STREAMED" else int(k) for k in cases} \
                 == set(sc.COLUMN_SLOTS)
-        for M in (2, 17, 34, 128, 129, 257, 401, 402, 513, 700, 1025, 1100):
-            for N in (2, 30, 129, 334, 402, 513, 800, 1025, 1056):
+        wide = (1057, 1537, 2049, 2080) if kind == "scaling" else ()
+        for M in (2, 17, 34, 128, 129, 257, 401, 402, 513, 700, 1025, 1100, 2049):
+            for N in (2, 30, 129, 334, 402, 513, 800, 1025, 1056) + wide:
                 plan = sc.cluster_plan(kind, 5, M, N)
                 assert plan["band"] * plan["cluster_size"] >= M
                 assert plan["band"] * (plan["cluster_size"] - 1) < M
@@ -210,7 +240,11 @@ class TestPlan:
 
     @pytest.mark.parametrize("kind", ["scaling", "bwd", "log"])
     def test_wider_than_the_lanes_is_refused(self, kind):
-        """N <= 32 x 33 = 1056: a wider pair matrix raises before any launch."""
+        """N <= 32 x 33 = 1056 for the log domain and the sweep (no path
+        needs more: training runs at K <= 1024), N <= 32 x 65 = 2080 for the
+        scaling domain: a wider pair matrix raises before any launch."""
+        limit = {"scaling": 2080, "bwd": 1056, "log": 1056}[kind]
         assert sc.cluster_plan(kind, 2, 40, 1056)["column_slots"] == 33
-        with pytest.raises(ValueError, match="N <= 1056"):
-            sc.cluster_plan(kind, 2, 40, 1057)
+        assert sc.max_columns(kind) == limit
+        with pytest.raises(ValueError, match=f"N <= {limit}"):
+            sc.cluster_plan(kind, 2, 40, limit + 1)
