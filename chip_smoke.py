@@ -6,9 +6,9 @@
 Phases, each fatal on failure:
   1. build      -- compile every hand-written kernel from `ops/csrc/` (nvcc,
                    one process per source, started together); a ptxas spill
-                   in an attention kernel fails it.
+                   in an attention kernel (float32 or bfloat16) fails it.
   2. device     -- print the card's name and power limit (nvidia-smi).
-  3. kernel     -- each of the nine kernels against its plain PyTorch version
+  3. kernel     -- each of the eleven kernels against its plain PyTorch version
                    at the shapes of its main path (eval: V=5, K=1024; training:
                    V=5, K=400 and 80 pair matrices of 401 x 401, 100
                    iterations; the kernels both paths launch at both), with
@@ -27,9 +27,15 @@ Phases, each fatal on failure:
                    instantiation at 8 and 80 x 2049 x 2049 (K = 2048: no
                    spill). The attention forward kernels also at the pair
                    benchmark's shapes (V = 2, K = 1024 and 2048) and the
-                   multi-view ones at K = 2048.
-                   Bounds: the largest of FP32 operations, exponentials and
-                   bytes at the card's peak rates.
+                   multi-view ones at K = 2048. The bfloat16 tensor-core
+                   kernels (`attn_fwd_bf16`, `cross_attn_fwd_bf16`) at the
+                   same eval, pair and K = 2048 shapes and in every mode at
+                   ragged ones, held to one bfloat16 ulp of their plain twin
+                   (+ 2^-18 of the output's absolute scale), beside SDPA on
+                   the same bfloat16 inputs and the float32 kernel.
+                   Bounds: the largest of FP32 (bf16: tensor-core bf16)
+                   operations, exponentials and bytes at the card's peak
+                   rates.
   4. reference  -- the pose pipeline on the card recovers the known poses of a
                    small exact synthetic 5-tuple.
   5. main_path  -- `cli.eval_multi_view.evaluate` at full width (V=5, K=1024,
@@ -42,7 +48,18 @@ Phases, each fatal on failure:
                    the stage times of one 8-tuple sub-chunk, the
                    unrolled-Jacobi share of the pose stage, and the device's
                    busy time under torch.profiler.
-  6. train_path -- `cli.train.train` at the full ScanNet 5-tuple training
+  6. bf16       -- the same evaluation in bfloat16 (`compute_dtype=
+                   "bfloat16"`): on the bfloat16 kernels and on the plain
+                   bfloat16 versions, tuples/s, exact launches a chunk (7
+                   `attn_fwd_bf16`, 21 `cross_attn_fwd_bf16`, 1
+                   `sinkhorn_scaling`, no float32 attention), finite
+                   extrinsics, no host sync in a sub-chunk; on the float32
+                   SuperPoint's outputs the bfloat16 kernels' matches differ
+                   from the float32 kernels' on no more of the matched
+                   keypoints than the plain bfloat16 run's + 1% + 3
+                   standard errors of the difference (BF16_MATCH_SLACK);
+                   the stage times of a sub-chunk.
+  7. train_path -- `cli.train.train` at the full ScanNet 5-tuple training
                    width (V=5, K=400, B=8, 480x480, 7 x (self + 3 x cross), 100
                    iterations, stage 1, f32) on seeded plane scenes with exact
                    depth: 6 steps on a repeated batch plus validation, on the
@@ -51,14 +68,14 @@ Phases, each fatal on failure:
                    the two runs agree, launch counts per step, no host sync
                    inside a step, a checkpoint reads back; steps/s, tuples/s
                    and a per-stage breakdown of one step.
-  7. pose_path  -- stage 2, `cli.train.train --pose_loss --init_exp_name` on
+  8. pose_path  -- stage 2, `cli.train.train --pose_loss --init_exp_name` on
                    the kernel run of train_path, at the same width with the
                    conf MLP, on seeded sphere-field scenes: 6 steps plus
                    validation. Steps/s of the loop, finite match, rotation and
                    translation losses, the guard's skips, launch counts per
                    step, no host sync inside a step, first-step gradients of
                    kernels against plain at a conditioned point.
-  8. cli        -- both command lines through `python -m` from a ScanNet-format
+  9. cli        -- both command lines through `python -m` from a ScanNet-format
                    tree (sphere-field scenes at 480x640 with exact depth,
                    written by `data/synthetic.write_scannet_format`): stage 1
                    of `cli.train` (V=5, K=400, B=8, jitter on, 2 steps, the
@@ -75,8 +92,10 @@ Phases, each fatal on failure:
                    load of a batch, and a 20-step stage-1 loop (no profiler):
                    steps/s of the loop and of its step alone, and the share
                    of the loop spent waiting on data, while the loader runs
-                   (steps 6-17) and after it has finished (18-20).
-  9. pairs      -- the two-view pair benchmark: `cli.eval_pairs` through
+                   (steps 6-17) and after it has finished (18-20). Last, the
+                   eval command line once more with `--compute_dtype
+                   bfloat16` (exit 0, finite AUCs).
+ 10. pairs      -- the two-view pair benchmark: `cli.eval_pairs` through
                    `python -m` (w8pt_ba, three AUCs) on 16 ScanNet-format pairs
                    with real ScanNet's 1296x968 color (537 x 720 frames on a
                    640 x 768 bucket, K = 1024), a seeded two-view matcher (9 x
@@ -92,7 +111,10 @@ Phases, each fatal on failure:
                    in w8pt_ba on 16 MegaDepth-format pairs at K = 2048, long
                    side 1600 in three shapes (three bucket pairs), and the
                    multi-view `evaluate` at K = 2048 (V = 5, 8 tuples: the
-                   Sinkhorn at 80 x 2049 x 2049).
+                   Sinkhorn at 80 x 2049 x 2049). ScanNet and MegaDepth in
+                   w8pt_ba in bfloat16 too (exact launches of the bfloat16
+                   kernels: 9 / 9 / 1 a sub-chunk; no host sync in a
+                   MegaDepth sub-chunk).
 The third line from the end is {"kernels": [...]}, then the card's name and
 power limit, and the last line is {"ok": true, "device": {...}}. Without a
 CUDA device, or outside the repository, it exits non-zero and prints no
@@ -112,11 +134,24 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 PKG = "e2e_multi_view_matching_tpu_torch"
 PEAK_F32_OPS = 67e12  # H100 SXM, FP32 outside the tensor cores (data sheet)
+PEAK_BF16_OPS = 989e12  # H100 SXM, dense bf16 on the tensor cores (data sheet)
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3 (data sheet)
 # exponentials: 16 a clock on each SM's special-function units x 132 SMs x
 # 1,980 MHz (the H100 SXM's maximum SM clock)
 PEAK_EXPS = 16 * 132 * 1.98e9
 ATTN_TOL = 2e-3  # online-softmax reordering drift bound (JAX test_chunked_softmax_drift_bounded)
+# bfloat16 attention kernels against their plain twin: `bf16_ulp_error` <= 1,
+# one bfloat16 ulp of the twin + 1e-6 + 2^-18 of the output's absolute scale
+# sum p |v| / l (the tensor cores' float32 sums truncate)
+BF16_ULP_TOL = 1.0
+# bfloat16 eval: the bf16 kernels' matches0 against the float32 kernels' on
+# the same SuperPoint outputs disagree on at most the plain bfloat16 run's
+# share of the matched keypoints + this + 3 standard errors of the difference
+# of the two shares. At the drawn weights bfloat16 decides most matches by
+# chance (28 random layers, random images: no true correspondence, pair
+# scores |s| ~ 1e2-1e3): each bf16 run keeps only ~30% of the float32
+# matches, and two equally faithful runs differ by ~1.7 points a draw.
+BF16_MATCH_SLACK = 0.01
 CROSS_TRAIN_TOL = 2e-4  # cross-attention training kernels: max |err| / max |reference|
 CROSS_LSE_TOL = 1e-5  # stashed LSE, absolute (a few float32 ulps at |lse| ~ 10)
 SINKHORN_TOL = 2e-4  # transport probabilities (JAX test_pallas_scaling_kernel_matches_xla)
@@ -146,7 +181,7 @@ CONDITIONED_RESCALE = {"q_proj": 1 / 4, "k_proj": 1 / 4, "final_proj": 1 / 32}
 OFF_PATH_KERNELS = ("sinkhorn_log",)
 # Sources whose kernels must not spill registers: the build phase fails on a
 # spill (the first dk/dv kernel lost 5x to one).
-SPILL_FREE_SOURCES = ("attention_cuda",)
+SPILL_FREE_SOURCES = ("attention_cuda", "attention_bf16_cuda")
 
 
 class SmokeFailure(RuntimeError):
@@ -178,15 +213,16 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def bound(ops, nbytes, exps=0.0):
+def bound(ops, nbytes, exps=0.0, bf16=False):
     """(least ms, "operations" or "bytes", the unit that binds) for `ops` FP32
-    operations at 67 TFLOP/s, `exps` exponentials at PEAK_EXPS and `nbytes`
-    of traffic at 3.35 TB/s: the largest of the three times."""
-    t_ops = ops / PEAK_F32_OPS * 1e3
+    operations at 67 TFLOP/s (with `bf16`: bf16 tensor-core operations at 989
+    TFLOP/s), `exps` exponentials at PEAK_EXPS and `nbytes` of traffic at
+    3.35 TB/s: the largest of the three times."""
+    t_ops = ops / (PEAK_BF16_OPS if bf16 else PEAK_F32_OPS) * 1e3
     t_exps = exps / PEAK_EXPS * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
-    return max((t_ops, "operations", "fp32"), (t_exps, "operations", "exponential"),
-               (t_bytes, "bytes", "memory"))
+    return max((t_ops, "operations", "bf16_tensor" if bf16 else "fp32"),
+               (t_exps, "operations", "exponential"), (t_bytes, "bytes", "memory"))
 
 
 def build_phase():
@@ -243,14 +279,14 @@ def _occupancy(name, BH, S, n_views, n_kpts, dh, mode):
     from e2e_multi_view_matching_tpu_torch.ops import attention_cuda as ac
 
     info = ac.kernel_info(name, dh, mode)
-    if name == "attn_fwd":
+    if name.startswith("attn_fwd"):
         blocks = BH * math.ceil(S / info["tile_rows"])
     else:
         blocks = BH * n_views * math.ceil(n_kpts / info["tile_rows"])
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     return {"registers": info["registers"], "blocks_per_sm": info["blocks_per_sm"],
-            "shared_bytes": info["shared_bytes"], "blocks": blocks,
-            "waves": blocks / (info["blocks_per_sm"] * sms)}
+            "shared_bytes": info["shared_bytes"], "spill_bytes": info["local_bytes"],
+            "blocks": blocks, "waves": blocks / (info["blocks_per_sm"] * sms)}
 
 
 def _sm_clock_under(fn, reps):
@@ -352,6 +388,9 @@ def _attention_records(g):
                     "shape": [BH, S, dh], **_occupancy(name, BH, S, n_views, K, dh, mode)}
         if nb < Bt:  # plain and library timed on the batch entries compared
             measured["compared_batch"] = [nb, Bt]
+        if replaces != "train":
+            _bf16_attention_record(by_name, records, name, replaces, mode, n_views, K, q, k, v,
+                                   nb, mask, keys, ms)
         if replaces == "train":
             by_name[name].setdefault("train_shapes", []).append({"mode": mode, **measured})
         elif replaces.startswith(("pairs", "multi-view")):
@@ -366,7 +405,8 @@ def _attention_records(g):
         torch.cuda.empty_cache()
 
     # the masked kernel's other modes and its ragged edge, and the cross kernel
-    # on ragged per-view tiles (200 = 3 x 64 + 8), at a smaller shape
+    # on ragged per-view tiles (200 = 3 x 64 + 8), at a smaller shape; float32
+    # and bfloat16
     for name, mode, n_views, n_kpts in (("attn_fwd", "self", 3, 200),
                                         ("attn_fwd", "cross", 3, 200),
                                         ("attn_fwd", "full", 1, 333),
@@ -374,16 +414,93 @@ def _attention_records(g):
         S = n_views * n_kpts
         q, k, v = rand(2, S, D), rand(2, S, D), rand(2, S, D)
         split = lambda x: x.reshape(2, S, h, dh).transpose(1, 2).reshape(2 * h, S, dh)  # noqa: E731
-        qs, ks, vs = (split(x).contiguous() for x in (q, k, v))
-        if name == "attn_fwd":
-            out = ac.attn_fwd(qs, ks, vs, n_kpts, mode, 1.0 / math.sqrt(dh))
-        else:
-            out = ac.cross_attn_fwd(qs, ks, vs, n_views, n_kpts, 1.0 / math.sqrt(dh))
-        ref = split(ac.plain_view_attention(q, k, v, h, n_views, n_kpts, mode))
-        err = float((out - ref).abs().max())
-        check(err <= ATTN_TOL, f"{name} mode {mode} K={n_kpts}: max err {err} > {ATTN_TOL}")
-        by_name[name]["max_abs_err"] = max(by_name[name]["max_abs_err"], err)
+        for dtype in (torch.float32, torch.bfloat16):
+            qs, ks, vs = (split(x).to(dtype).contiguous() for x in (q, k, v))
+            if name == "attn_fwd":
+                out = ac.attn_fwd(qs, ks, vs, n_kpts, mode, 1.0 / math.sqrt(dh))
+            else:
+                out = ac.cross_attn_fwd(qs, ks, vs, n_views, n_kpts, 1.0 / math.sqrt(dh))
+            ref = ac.plain_view_attention(qs, ks, vs, 1, n_views, n_kpts, mode)
+            if dtype == torch.float32:
+                err = float((out - ref).abs().max())
+                check(err <= ATTN_TOL, f"{name} mode {mode} K={n_kpts}: max err {err} > "
+                      f"{ATTN_TOL}")
+                by_name[name]["max_abs_err"] = max(by_name[name]["max_abs_err"], err)
+                continue
+            scale = ac.plain_view_attention(qs.float(), ks.float(), vs.float().abs(), 1,
+                                            n_views, n_kpts, mode)
+            ulps = ac.bf16_ulp_error(out, ref, scale)
+            check(ulps <= BF16_ULP_TOL, f"{name} bf16 mode {mode} K={n_kpts}: {ulps} of the "
+                  f"one-ulp gate")
+            rec = by_name[f"{name}_bf16"]
+            rec["max_abs_err"] = max(rec["max_abs_err"], float((out.float() - ref.float())
+                                                               .abs().max()))
+            rec["ulp_gate"] = max(rec["ulp_gate"], ulps)
     return records
+
+
+def _bf16_attention_record(by_name, records, name, replaces, mode, n_views, K, q, k, v, nb,
+                           mask, keys, f32_ms):
+    """The bfloat16 tensor-core kernel at the float32 record's shape and inputs
+    (rounded to bfloat16): held against its plain twin (`plain_view_attention`
+    on the bfloat16 tensors: float32 arithmetic, the output rounded once) by
+    the one-ulp gate on the first `nb` batch entries; timed beside the twin,
+    SDPA on the same bfloat16 inputs and mask, and the float32 kernel."""
+    import torch
+    import torch.nn.functional as F
+
+    from e2e_multi_view_matching_tpu_torch.ops import attention_cuda as ac
+
+    Bt, S, D = q.shape
+    h, dh = 4, D // 4
+    qb, kb, vb = q.bfloat16(), k.bfloat16(), v.bfloat16()
+    q3, k3, v3 = (x.reshape(Bt, S, h, dh).transpose(1, 2).reshape(Bt * h, S, dh).contiguous()
+                  for x in (qb, kb, vb))
+    scale = 1.0 / math.sqrt(dh)
+    if name == "attn_fwd":
+        run = lambda: ac.attn_fwd(q3, k3, v3, K, mode, scale)  # noqa: E731
+    else:
+        run = lambda: ac.cross_attn_fwd(q3, k3, v3, n_views, K, scale)  # noqa: E731
+    qn, kn, vn = qb[:nb], kb[:nb], vb[:nb]
+    out = ac.fused_view_attention(qn, kn, vn, h, n_views, K, mode)
+    out3 = run()[:nb * h]
+    ref = ac.plain_view_attention(qn, kn, vn, h, n_views, K, mode)
+    abs_scale = ac.plain_view_attention(qn.float(), kn.float(), vn.float().abs(), h, n_views,
+                                        K, mode)
+    split = lambda x: x.reshape(nb, S, h, dh).transpose(1, 2).reshape(nb * h, S, dh)  # noqa: E731
+    ulps = max(ac.bf16_ulp_error(out, ref, abs_scale),
+               ac.bf16_ulp_error(out3, split(ref), split(abs_scale)))
+    err = max(float((out.float() - ref.float()).abs().max()),
+              float((out3.float() - split(ref).float()).abs().max()))
+    del out, out3, ref, abs_scale
+    torch.cuda.synchronize()
+    ms = cuda_ms(run, 5)
+    plain_ms = cuda_ms(lambda: ac.plain_view_attention(qn, kn, vn, h, n_views, K, mode), 3)
+    qs, ks, vs = (x[:nb * h].reshape(nb, h, S, dh) for x in (q3, k3, v3))
+    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask), 3)
+    BH = Bt * h
+    b_ms, b_by, b_unit = bound(4.0 * BH * S * keys * dh, 2 * 4 * BH * S * dh,
+                               exps=float(BH * S * keys), bf16=True)
+    kname = f"{name}_bf16"
+    where = f"{kname} {mode} V={n_views} K={K}"
+    check(ulps <= BF16_ULP_TOL, f"{where}: {ulps} of the one-ulp gate (max |err| {err})")
+    measured = {"max_abs_err": err, "ulp_gate": ulps, "tol": BF16_ULP_TOL, "ms": ms,
+                "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "bound_unit": b_unit,
+                "library_ms": lib_ms, "f32_kernel_ms": f32_ms, "shape": [BH, S, dh],
+                **_occupancy(kname, BH, S, n_views, K, dh, mode)}
+    if nb < Bt:
+        measured["compared_batch"] = [nb, Bt]
+    if replaces.startswith(("pairs", "multi-view")):
+        by_name[kname].setdefault("pair_shapes", []).append(
+            {"path": replaces, "mode": mode, **measured})
+    else:
+        by_name[kname] = {"name": kname, "route": "cuda", "dtype": "bfloat16",
+                          "source": f"{PKG}/ops/csrc/attention_bf16_cuda.cu",
+                          "replaces": replaces, "launches": 0, **measured}
+        records.append(by_name[kname])
+    check(measured["spill_bytes"] == 0, f"{where}: {measured['spill_bytes']} spill bytes")
+    del qb, kb, vb, q3, k3, v3, qn, kn, vn, qs, ks, vs
+    torch.cuda.empty_cache()
 
 
 def _cross_attn_train_records(g):
@@ -924,12 +1041,13 @@ def reference_phase():
     emit({"phase": "reference", "tuples": len(cases), "max_rot_err_deg": worst, "tol": 1.0})
 
 
-def _full_width_models(seed=0):
+def _full_width_models(seed=0, compute_dtype="float32"):
     """SuperPoint and the 5-view matcher at the eval widths with seeded random
     weights drawn as flax draws them by default (LeCun normal, zero bias):
     after 28 GNN layers the pair scores reach |s| ~ 1e2-1e3, the regime the
     Sinkhorn kernel must survive. Returns (superpoint, kernel matcher with
-    "auto" resolved on the GPU, plain matcher)."""
+    "auto" resolved on the GPU, plain matcher); the same weights in either
+    `compute_dtype`."""
     import types
 
     import torch
@@ -948,7 +1066,8 @@ def _full_width_models(seed=0):
     def matcher(att, sink):
         return MultiViewMatcher(MatcherConfig(
             gnn_layers=default_gnn_layers(7, 3), sinkhorn_iterations=100, conf_mlp=True,
-            multi_frame_matching=True, attention_impl=att, sinkhorn_impl=sink))
+            multi_frame_matching=True, attention_impl=att, sinkhorn_impl=sink,
+            compute_dtype=compute_dtype))
 
     from e2e_multi_view_matching_tpu_torch.models.convert import init_like_flax_
 
@@ -957,7 +1076,8 @@ def _full_width_models(seed=0):
         types.SimpleNamespace(attention_impl="auto", sinkhorn_impl="auto"), "cuda")
     sp = SuperPoint(SuperPointConfig(nms_radius=4, keypoint_threshold=0.001,
                                      max_keypoints=1024, remove_borders=12,
-                                     fill_with_random_keypoints=False))
+                                     fill_with_random_keypoints=False,
+                                     compute_dtype=compute_dtype))
     kernels = matcher(impls.attention_impl, impls.sinkhorn_impl)
     init_like_flax_(sp, g)
     init_like_flax_(kernels, g)
@@ -1071,6 +1191,92 @@ def main_path_phase(n_tuples=8):
     for k in ("attn_fwd", "cross_attn_fwd", "sinkhorn_scaling"):
         check(launches.get(k, 0) >= 1, f"main path never launched {k}")
     return launches, (sp, kernels, images, intr, size)
+
+
+def bf16_phase(n_tuples=8):
+    """bfloat16 eval (`compute_dtype="bfloat16"`) at the full eval width: the
+    seeded weights of `main_path`, `evaluate` on the bfloat16 kernels and on
+    the plain bfloat16 versions (`multi_head_attention`), exact launches,
+    finiteness and host syncs of a sub-chunk, the matches of both against the
+    float32 kernels' on the same SuperPoint outputs (see BF16_MATCH_SLACK),
+    and the stage times of a sub-chunk. Returns the kernel run's launches."""
+    import types
+
+    import torch
+
+    from e2e_multi_view_matching_tpu_torch.cli.eval_multi_view import (
+        evaluate,
+        infer_subchunk,
+    )
+
+    sp, kernels, plain = _full_width_models(compute_dtype="bfloat16")
+    sp32, kernels32, _ = _full_width_models()
+    sp32, kernels32 = sp32.cuda().eval(), kernels32.cuda().eval()
+    data = _dataset(8)
+    dataset = [data[i % len(data)] for i in range(n_tuples)]
+    opt = types.SimpleNamespace(tuple_size=5, max_tuples=None, eval_batch=8, eval_scan=1,
+                                no_pipeline=False, compute_dtype="bfloat16")
+    runs = {}
+    for name, matcher in (("kernels", kernels), ("plain", plain)):
+        evaluate(opt, sp, matcher, dataset[:8])  # warm-up: cuDNN plans, allocator
+        torch.cuda.synchronize()
+        _reset_launches()
+        t0 = time.perf_counter()
+        errors = evaluate(opt, sp, matcher, dataset)
+        dt = time.perf_counter() - t0
+        if name == "kernels":
+            launches = _launches()
+        check(len(errors[0]) == n_tuples * 10 and np.all(np.isfinite(errors[1])),
+              f"bf16 ({name}): errors missing or non-finite")
+        runs[name] = {"tuples_per_s": n_tuples / dt, "seconds": dt}
+    per_chunk = {**{k: 0 for k in launches}, "attn_fwd_bf16": 7, "cross_attn_fwd_bf16": 21,
+                 "sinkhorn_scaling": 1}
+
+    s = dataset[:8]
+    images = torch.from_numpy(np.stack([x["images"] for x in s])).cuda()
+    intr = torch.from_numpy(np.stack([x["intr"][:, :3, :3] for x in s])).cuda()
+    size = torch.tensor([480.0, 640.0], device="cuda").expand(8, 5, 2)
+    with torch.inference_mode():
+        out = infer_subchunk(sp, kernels, images, intr, size)
+        syncs = _host_syncs(lambda: infer_subchunk(sp, kernels, images, intr, size))
+        # the matcher alone: the float32 SuperPoint's outputs into the float32
+        # kernels, the bfloat16 kernels and the plain bfloat16 versions
+        sp_out = sp32(images.reshape((40,) + images.shape[2:]))
+        m_in = (sp_out["keypoints"].reshape(8, 5, -1, 2), sp_out["scores"].reshape(8, 5, -1),
+                sp_out["descriptors"].reshape(8, 5, 1024, -1), size)
+        m32, m_k, m_p = (m(*m_in)["matches0"] for m in (kernels32, kernels, plain))
+    agree_k, n_matched = _match_agreement(m_k, m32)
+    agree_p, n_p = _match_agreement(m_p, m32)
+    # the standard error of the difference of two shares of ~n keypoints
+    stderr = math.sqrt(2 * agree_p * (1 - agree_p) / max(1, min(n_matched, n_p)))
+    limit = (1 - agree_p) + BF16_MATCH_SLACK + 3 * stderr
+    agreement = {"bf16_kernels_f32_kernels": agree_k, "bf16_plain_f32_kernels": agree_p,
+                 "bf16_kernels_bf16_plain": _match_agreement(m_k, m_p)[0],
+                 "matched_keypoints": [n_matched, n_p], "stderr_of_difference": stderr,
+                 "limit_disagreement": limit}
+    finite = bool(torch.isfinite(out[3]).all())
+    emit({"phase": "bf16", "config": {"V": 5, "K": 1024, "image": [480, 640],
+                                      "gnn": "7x(self+3xcross)", "sinkhorn_iters": 100,
+                                      "eval_batch": 8, "tuples": n_tuples,
+                                      "compute_dtype": "bfloat16"},
+          "tuples_per_s": runs["kernels"]["tuples_per_s"],
+          "plain_tuples_per_s": runs["plain"]["tuples_per_s"], "runs": runs,
+          "launches": launches, "launches_expected": per_chunk,
+          "matches0_agreement_over_matched": agreement,
+          "matches_kernel_run": int((out[1] >= 0).sum()), "extrinsics_finite": finite,
+          "host_syncs_in_sub_chunk": syncs})
+    check(launches == per_chunk, f"bf16: launched {launches}, expected {per_chunk}")
+    check(finite, "bf16: non-finite extrinsics")
+    check(not syncs, f"bf16: host syncs inside infer_subchunk at {syncs}")
+    check(n_matched > 0, "bf16: no keypoint matched")
+    check(1 - agree_k <= limit, f"bf16: the bf16 kernels' matches differ from the float32 "
+          f"kernels' on {1 - agree_k} of the matched keypoints, the plain bf16 run's on "
+          f"{1 - agree_p} (limit {limit})")
+    # the stage times alone, to keep the whole run inside half its time limit
+    # (the bf16 sub-chunk's profile: PERF.md section 5)
+    breakdown_phase(sp, kernels, images, intr, size, reps=1, phase="breakdown_bf16",
+                    profile=False)
+    return launches
 
 
 class _LossLog:
@@ -1256,7 +1462,8 @@ def _train_launches(n_steps, val_batches):
     return {"attn_fwd": 7 * (n_steps + val_batches), "cross_attn_fwd": 21 * val_batches,
             "cross_attn_fwd_lse": 21 * n_steps, "cross_attn_bwd_dq": 21 * n_steps,
             "cross_attn_bwd_dkv": 21 * n_steps, "sinkhorn_log_stash": n_steps,
-            "sinkhorn_bwd": n_steps, "sinkhorn_scaling": val_batches, "sinkhorn_log": 0}
+            "sinkhorn_bwd": n_steps, "sinkhorn_scaling": val_batches, "sinkhorn_log": 0,
+            "attn_fwd_bf16": 0, "cross_attn_fwd_bf16": 0}
 
 
 def pose_path_phase(workdir, stage1_exp=None, n_steps=6):
@@ -1623,7 +1830,9 @@ def _train_breakdown(sp, opt, state, dev, gen, reps=2):
 EVAL_GROUPS = {
     "sinkhorn_scaling": ("scaling_cluster_kernel",),
     "attention_fwd_kernels": ("attn_fwd_kernel",),
-    "cross_attn_fwd": ("cross_attn_fwd_kernel",)}
+    "cross_attn_fwd": ("cross_attn_fwd_kernel",),
+    "attention_bf16_kernels": ("attn_fwd_bf16_kernel",),
+    "cross_attn_fwd_bf16": ("cross_attn_fwd_bf16_kernel",)}
 # device time of a train step by kernel group (substrings of kernel names)
 TRAIN_GROUPS = {
     "sinkhorn_fwd": ("log_cluster_kernel",),
@@ -1632,9 +1841,11 @@ TRAIN_GROUPS = {
     "attention_bwd_kernels": ("cross_attn_bwd",)}
 
 
-def breakdown_phase(sp, matcher, images, intr, size, reps=3):
+def breakdown_phase(sp, matcher, images, intr, size, reps=3, phase="breakdown",
+                    profile=True):
     """Where one 8-tuple sub-chunk's time goes, stage by stage (host clock
-    around synchronized work), and the unrolled-Jacobi share of the pose stage."""
+    around synchronized work), and the unrolled-Jacobi share of the pose stage;
+    with `profile`, the device's busy time under torch.profiler."""
     import torch
 
     from e2e_multi_view_matching_tpu_torch.cli.eval_multi_view import infer_subchunk
@@ -1665,12 +1876,12 @@ def breakdown_phase(sp, matcher, images, intr, size, reps=3):
         r6 = torch.ones(B * 10, 6, device="cuda")
         j24, _ = wall(lambda: eig_thresholded_solve(S24, r24, n_sweeps=8))
         j6, _ = wall(lambda: eig_thresholded_solve(S6, r6, n_sweeps=6))
-        busy = _device_busy(lambda: infer_subchunk(sp, matcher, images, intr, size),
-                            groups=EVAL_GROUPS)
+        busy = (_device_busy(lambda: infer_subchunk(sp, matcher, images, intr, size),
+                             groups=EVAL_GROUPS) if profile else {})
     # the multi-view BA solves 24x24 once per LM iteration (20); the two-view BA
     # solves 6x6 once per LM iteration (10)
     jacobi_ms = 20 * j24 + 10 * j6
-    emit({"phase": "breakdown", "sub_chunk_tuples": B, "superpoint_ms": sp_ms,
+    emit({"phase": phase, "sub_chunk_tuples": B, "superpoint_ms": sp_ms,
           "matcher_ms": m_ms, "pose_ms": pose_ms, "jacobi_ms_in_pose": jacobi_ms,
           "jacobi_share_of_pose": jacobi_ms / pose_ms, **busy})
 
@@ -1975,6 +2186,17 @@ def cli_phase(workdir, card, n_steps=2, hd_steps=20):
     expected = {**{k: 0 for k in launches}, "attn_fwd": 7, "cross_attn_fwd": 21,
                 "sinkhorn_scaling": 1}
     check(launches == expected, f"cli: eval launched {launches}, expected {expected}")
+
+    # the eval command line in bfloat16 (the bfloat16 attention kernels)
+    text5, wall5 = _run_cli("eval_multi_view", eval_args + ["--compute_dtype", "bfloat16"],
+                            f"{workdir}/cli_eval_bf16.log")
+    with open(f"{exp_dir}/multi_view_scannet.json") as f:
+        bf16_metrics = json.load(f)
+    emit({"phase": "cli_bf16", "card": card, "wall_seconds": wall5, "metrics": bf16_metrics,
+          "tuples": int(re.findall(r"loaded (\d+) test tuples", text5)[-1])})
+    check(set(bf16_metrics) == set(auc_keys)
+          and all(math.isfinite(bf16_metrics[k]) for k in auc_keys),
+          f"cli: bfloat16 eval metrics {bf16_metrics}")
     return launches
 
 
@@ -2129,6 +2351,7 @@ def pairs_phase(workdir, card, n_pairs=16):
 
     EB, SCAN = 8, 2  # eval_batch, eval_scan: the command line's defaults
     per_sub = {"attn_fwd": 9, "cross_attn_fwd": 9, "sinkhorn_scaling": 1}
+    per_sub_bf16 = {"attn_fwd_bf16": 9, "cross_attn_fwd_bf16": 9, "sinkhorn_scaling": 1}
     data, assets, ckpt = f"{workdir}/pairs_data", f"{workdir}/pairs_assets", f"{workdir}/pairs_runs"
     total = {}
 
@@ -2155,11 +2378,11 @@ def pairs_phase(workdir, card, n_pairs=16):
     # in this process the matchers take every mutual best match (threshold 0,
     # as the JAX package's tests run them), so that every pair has ~40-130
     # and the pose stages run on valid pairs; `main()` keeps 0.2
-    def two_view(att, sink):
+    def two_view(att, sink, dtype="float32"):
         return MultiViewMatcher(MatcherConfig(
             gnn_layers=default_gnn_layers(9, 1), sinkhorn_iterations=100, conf_mlp=True,
             multi_frame_matching=False, attention_impl=att, sinkhorn_impl=sink,
-            match_threshold=0.0))
+            match_threshold=0.0, compute_dtype=dtype))
 
     kernels, plain = two_view("cuda", "cuda"), two_view("xla", "mxu")
     init_like_flax_(kernels, torch.Generator().manual_seed(9))
@@ -2180,18 +2403,19 @@ def pairs_phase(workdir, card, n_pairs=16):
           and all(math.isfinite(v) for v in cli_aucs.values()),
           f"pairs: eval_pairs wrote {cli_aucs}")
 
-    def superpoint(K, nms, thresh):
+    def superpoint(K, nms, thresh, dtype="float32"):
         sp = SuperPoint(SuperPointConfig(nms_radius=nms, keypoint_threshold=thresh,
                                          max_keypoints=K, remove_borders=0,
-                                         fill_with_random_keypoints=False))
+                                         fill_with_random_keypoints=False, compute_dtype=dtype))
         sp.load_state_dict(sp_state)
         return sp
 
-    def run(sp, matcher, samples, mode, kernel_run):
+    def run(sp, matcher, samples, mode, kernel_run, per=per_sub, dtype="float32"):
         """`evaluate` over `samples` (decoded): pairs/s, failures, signatures,
-        and the kernels' launches, which must be exact on the kernels."""
+        and the kernels' launches, which must be exact on the kernels (`per`
+        a sub-chunk)."""
         opt = types.SimpleNamespace(eval_mode=mode, max_pairs=None, eval_batch=EB,
-                                    eval_scan=SCAN, shape_bucket=128, compute_dtype="float32")
+                                    eval_scan=SCAN, shape_bucket=128, compute_dtype=dtype)
         torch.cuda.synchronize()
         _reset_launches()
         t0 = time.perf_counter()
@@ -2199,14 +2423,14 @@ def pairs_phase(workdir, card, n_pairs=16):
         dt = time.perf_counter() - t0
         launches = _launches()
         n_sub, want_sig = _pair_grid(samples, EB, SCAN)
-        where = f"pairs ({mode}, {'kernels' if kernel_run else 'plain'})"
+        where = f"pairs ({mode}, {dtype}, {'kernels' if kernel_run else 'plain'})"
         check(len(errors) == len(samples) and int(np.isfinite(errors).sum())
               == len(samples) - failures, f"{where}: errors {errors}, {failures} failures")
         check(n_sig == want_sig, f"{where}: {n_sig} signatures, expected {want_sig}")
         check(len(samples) - failures >= MIN_VALID_SHARE * len(samples),
               f"{where}: {failures} of {len(samples)} pairs without a pose")
         if kernel_run:
-            want = {**{k: 0 for k in launches}, **{k: v * n_sub for k, v in per_sub.items()}}
+            want = {**{k: 0 for k in launches}, **{k: v * n_sub for k, v in per.items()}}
             check(launches == want, f"{where}: launched {launches}, expected {want}")
             add_launches(launches)
         return {"pairs_per_s": len(samples) / dt, "seconds": dt, "failures": failures,
@@ -2303,6 +2527,15 @@ def pairs_phase(workdir, card, n_pairs=16):
     scannet = {mode: run(sp, kernels, samples, mode, True) for mode in tep.EVAL_MODES}
     scannet["plain_w8pt_ba"] = run(sp, plain, samples, "w8pt_ba", False)
     scannet_sub = sub_chunk_checks(sp, samples[:EB], "ScanNet")
+    # bfloat16 (`--compute_dtype bfloat16`): the same weights, w8pt_ba, on the
+    # bfloat16 attention kernels
+    kernels16 = two_view("cuda", "cuda", "bfloat16")
+    kernels16.load_state_dict(kernels.state_dict())
+    sp16 = superpoint(1024, 4, 0.001, "bfloat16")
+    run(sp16, kernels16, samples[:EB], "w8pt_ba", False, per_sub_bf16, "bfloat16")  # warm-up
+    scannet["bf16_w8pt_ba"] = run(sp16, kernels16, samples, "w8pt_ba", True, per_sub_bf16,
+                                  "bfloat16")
+    del sp16
 
     # 2. MegaDepth format at K = 2048: three shapes at long side 1600, so that
     # chunks of different bucket pairs interleave
@@ -2318,10 +2551,21 @@ def pairs_phase(workdir, card, n_pairs=16):
     run(sp2, kernels, md_samples[:EB], "w8pt_ba", False)  # warm-up
     megadepth = {"w8pt_ba": run(sp2, kernels, md_samples, "w8pt_ba", True),
                  "plain_w8pt_ba": run(sp2, plain, md_samples, "w8pt_ba", False)}
-    check(megadepth["w8pt_ba"]["signatures"] >= 2,
-          f"pairs: MegaDepth pairs on {megadepth['w8pt_ba']['signatures']} bucket pairs")
     first = md_samples[0]["image0"].shape, md_samples[0]["image1"].shape
     same = [d for d in md_samples if (d["image0"].shape, d["image1"].shape) == first][:EB]
+    sp2_16 = superpoint(2048, 3, 0.005, "bfloat16")
+    run(sp2_16, kernels16, md_samples[:EB], "w8pt_ba", False, per_sub_bf16, "bfloat16")
+    megadepth["bf16_w8pt_ba"] = run(sp2_16, kernels16, md_samples, "w8pt_ba", True,
+                                    per_sub_bf16, "bfloat16")
+    with torch.inference_mode():  # one bf16 sub-chunk at K = 2048: no host sync
+        md_args = _pair_sub_chunk(same)
+        megadepth["bf16_host_syncs_in_sub_chunk"] = _host_syncs(
+            lambda: tep.infer_pose_subchunk(sp2_16, kernels16, "w8pt_ba", *md_args))
+    del sp2_16, md_args
+    check(not megadepth["bf16_host_syncs_in_sub_chunk"], f"pairs: host syncs in a bf16 "
+          f"sub-chunk {megadepth['bf16_host_syncs_in_sub_chunk']}")
+    check(megadepth["w8pt_ba"]["signatures"] >= 2,
+          f"pairs: MegaDepth pairs on {megadepth['w8pt_ba']['signatures']} bucket pairs")
     megadepth_sub = sub_chunk_checks(sp2, same, "MegaDepth")
     del sp2, md_samples
     torch.cuda.empty_cache()
@@ -2368,7 +2612,8 @@ def pairs_phase(workdir, card, n_pairs=16):
     return total
 
 
-PHASES = ("kernel", "reference", "main_path", "train_path", "pose_path", "cli", "pairs")
+PHASES = ("kernel", "reference", "main_path", "bf16", "train_path", "pose_path", "cli",
+          "pairs")
 
 
 def main(argv=None):
@@ -2398,11 +2643,19 @@ def main(argv=None):
     import tempfile
 
     by_path = {}
+    seconds, t_last = {}, time.perf_counter()  # wall seconds of each phase
+
+    def lap(name):
+        nonlocal t_last
+        seconds[name], t_last = time.perf_counter() - t_last, time.perf_counter()
+
     try:
         with tempfile.TemporaryDirectory() as workdir:  # checkpoints of the two stages
             build_phase()
             card = device_phase()
+            lap("build")
             records = kernel_phase() if "kernel" in phases else []
+            lap("kernel")
             if "reference" in phases:
                 reference_phase()
             if "main_path" in phases:
@@ -2410,18 +2663,28 @@ def main(argv=None):
                 breakdown_phase(*sub_chunk)
                 del sub_chunk
                 torch.cuda.empty_cache()
+            lap("main_path")
+            if "bf16" in phases:
+                by_path["eval_bf16"] = bf16_phase()
+                torch.cuda.empty_cache()
+            lap("bf16")
             stage1_exp = None
             if "train_path" in phases:
                 by_path["train"], stage1_exp = train_path_phase(workdir)
                 torch.cuda.empty_cache()
+            lap("train_path")
             if "pose_path" in phases:
                 by_path["pose"] = pose_path_phase(workdir, stage1_exp)
                 torch.cuda.empty_cache()
+            lap("pose_path")
             if "cli" in phases:
                 by_path["cli_eval"] = cli_phase(workdir, card)
                 torch.cuda.empty_cache()
+            lap("cli")
             if "pairs" in phases:
                 by_path["pairs"] = pairs_phase(workdir, card)
+            lap("pairs")
+            emit({"phase_seconds": seconds})
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1

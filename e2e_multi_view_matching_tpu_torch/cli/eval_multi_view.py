@@ -165,7 +165,7 @@ def evaluate(opt, superpoint, matcher, dataset, pipeline_cfg=MultiViewPipelineCo
         device: "cuda" by default; raises if no GPU is present.
     """
     device = resolve_device(device)
-    strict_float32(opt)
+    strict_float32()
     superpoint.to(device).eval()
     matcher.to(device).eval()
     pose_errors = ([], [], [])

@@ -195,7 +195,7 @@ def evaluate(opt, superpoint, matcher, dataset, device="cuda"):
         pair, S, eval_batch) chunk signatures).
     """
     device = resolve_device(device)
-    strict_float32(opt)
+    strict_float32()
     superpoint.to(device).eval()
     matcher.to(device).eval()
     mode = opt.eval_mode

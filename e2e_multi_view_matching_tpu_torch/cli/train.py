@@ -124,6 +124,10 @@ def parse_args(argv=None):
     if opt.model_parallel != 1 or opt.multi_host:
         parser.error("--model_parallel and --multi_host wait for the ports of "
                      "parallel/mesh.py and mvba/distributed.py")
+    if opt.compute_dtype != "float32":
+        parser.error("--compute_dtype bfloat16 trains on the bfloat16 cross-attention "
+                     "training kernels, the next slice of the port; it evaluates "
+                     "(cli.eval_multi_view, cli.eval_pairs) already")
     return opt
 
 
@@ -200,7 +204,7 @@ def train(opt, train_batches, val_batches, device="cuda"):
 
 def _train_loop(opt, exp_dir, resume, train_batches, val_batches, device):
     """`train` on a settled `opt` (see `setup_run`)."""
-    strict_float32(opt)
+    strict_float32()
     tb = TBWriter(opt.checkpoint_dir, opt.exp_name, enabled=not opt.no_tensorboard)
     if opt.profile_steps:
         p_start, p_end = (int(x) for x in opt.profile_steps.split(","))

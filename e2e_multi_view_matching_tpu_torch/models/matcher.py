@@ -18,6 +18,15 @@ batch statistics over all axes but the last and moves the running statistics,
 exactly as flax does (biased variance as E[x^2] - E[x]^2, also stored;
 momentum 0.9 on the old value). It is a call argument, as in the JAX package,
 not `nn.Module.train()`.
+
+`compute_dtype="bfloat16"` (eval only; training in bfloat16 is the next slice
+of the port) rounds where the JAX package's flax modules round: parameters
+stay float32 and are cast per call; a Dense casts input, kernel and bias to
+bfloat16, takes the product with a bfloat16 result and adds the bias in
+bfloat16; BatchNorm and ReLU run in float32 on the upcast input; the keypoint
+encoder's input, the descriptors, the residual adds and the attention run in
+bfloat16; the pair scores are float32 products of the bfloat16 descriptors,
+and the Sinkhorn and the confidence head's sigmoid are float32.
 """
 
 from dataclasses import dataclass, field
@@ -28,10 +37,14 @@ import torch.nn.functional as F
 from torch import nn
 
 from e2e_multi_view_matching_tpu_torch.ops.attention import (
+    at_least_f32,
     cross_view_mask,
     multi_head_attention,
 )
-from e2e_multi_view_matching_tpu_torch.ops.attention_cuda import fused_view_attention
+from e2e_multi_view_matching_tpu_torch.ops.attention_cuda import (
+    BF16_TRAINING,
+    fused_view_attention,
+)
 from e2e_multi_view_matching_tpu_torch.ops.sinkhorn import (
     extract_matches,
     log_optimal_transport,
@@ -41,6 +54,7 @@ from e2e_multi_view_matching_tpu_torch.ops.sinkhorn_cuda import log_optimal_tran
 ATTENTION_IMPLS = ("xla", "cuda")
 SINKHORN_IMPLS = ("xla", "mxu", "cuda")
 BN_MOMENTUM = 0.9  # weight of the old running statistic (flax `momentum`)
+COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 def default_gnn_layers(gnn_layers: int = 9, cross_attention_layers: int = 1) -> Tuple[str, ...]:
@@ -82,6 +96,16 @@ def batch_norm(x, bn, train):
     return (x - mean) * (torch.rsqrt(var + bn.eps) * bn.weight) + bn.bias
 
 
+def dense(layer, x, dtype=torch.float32):
+    """flax `nn.Dense(dtype=dtype)` with `layer`'s float32 parameters: the
+    layer itself, or in bfloat16 the product of the cast input and kernel
+    rounded to bfloat16 and then the bfloat16 bias added (two roundings, in
+    flax's order; a fused `F.linear` with bias rounds once)."""
+    if dtype != torch.bfloat16:
+        return layer(x)
+    return F.linear(x.to(dtype), layer.weight.to(dtype)) + layer.bias.to(dtype)
+
+
 class MLP(nn.Module):
     """Linear stack with BatchNorm (over the last axis) + ReLU between layers."""
 
@@ -96,11 +120,13 @@ class MLP(nn.Module):
                 setattr(self, f"bn_{i}", nn.BatchNorm1d(c, eps=1e-5))
             in_dim = c
 
-    def forward(self, x, train=False):
+    def forward(self, x, train=False, dtype=torch.float32):
+        """`dtype`: the Dense layers' compute dtype; BatchNorm and ReLU run in
+        float32 (flax `BatchNorm(dtype=float32)`), the output is `dtype`."""
         for i in range(self.n):
-            x = getattr(self, f"dense_{i}")(x)
+            x = dense(getattr(self, f"dense_{i}"), x, dtype)
             if i < self.n - 1:
-                x = F.relu(batch_norm(x, getattr(self, f"bn_{i}"), train))
+                x = F.relu(batch_norm(at_least_f32(x), getattr(self, f"bn_{i}"), train))
         return x
 
 
@@ -116,17 +142,21 @@ class AttentionalLayer(nn.Module):
         self.merge = nn.Linear(dim, dim)
         self.mlp = MLP(2 * dim, (2 * dim, dim))
 
-    def forward(self, x, source, n_views, n_kpts, mask=None, train=False):
+    def forward(self, x, source, n_views, n_kpts, mask=None, train=False,
+                dtype=torch.float32):
         """`n_views`, `n_kpts` describe the token structure for the kernels'
-        in-kernel mask; `mask` is the plain path's (S, S) mask."""
-        q, k, v = self.q_proj(x), self.k_proj(source), self.v_proj(source)
+        in-kernel mask; `mask` is the plain path's (S, S) mask; `dtype` the
+        compute dtype of the projections, the attention and the residual."""
+        q = dense(self.q_proj, x, dtype)
+        k = dense(self.k_proj, source, dtype)
+        v = dense(self.v_proj, source, dtype)
         if self.impl == "cuda":
             message = fused_view_attention(q, k, v, self.num_heads, n_views, n_kpts,
                                            self.mode)
         else:
             message = multi_head_attention(q, k, v, self.num_heads, mask=mask)
-        message = self.merge(message)
-        return x + self.mlp(torch.cat([x, message], dim=-1), train)
+        message = dense(self.merge, message, dtype)
+        return x + self.mlp(torch.cat([x, message], dim=-1), train, dtype)
 
 
 class MultiViewMatcher(nn.Module):
@@ -135,10 +165,8 @@ class MultiViewMatcher(nn.Module):
     def __init__(self, config=MatcherConfig()):
         super().__init__()
         cfg = config
-        if cfg.compute_dtype != "float32":
-            raise NotImplementedError(
-                "only float32 is ported (bfloat16 compute, kernels included, is "
-                "its own item of the port)")
+        if cfg.compute_dtype not in COMPUTE_DTYPES:
+            raise ValueError(f"compute_dtype must be one of {tuple(COMPUTE_DTYPES)}")
         if cfg.attention_impl not in ATTENTION_IMPLS:
             raise ValueError(f"attention_impl must be one of {ATTENTION_IMPLS}")
         if cfg.sinkhorn_impl not in SINKHORN_IMPLS:
@@ -170,12 +198,18 @@ class MultiViewMatcher(nn.Module):
             "matching_scores0" (B, P, K) and "conf_scores" (B, P, K) (conf MLP).
         """
         cfg = self.config
+        cdtype = COMPUTE_DTYPES[cfg.compute_dtype]
+        if train and cdtype == torch.bfloat16:
+            raise NotImplementedError(f"the matcher trains in float32 only: {BF16_TRAINING}")
         B, V, K, D = descs.shape
         size = image_size.to(kpts.dtype)
         center = torch.stack([size[..., 1], size[..., 0]], dim=-1)[:, :, None, :] / 2.0
         scaling = 0.7 * size.amax(dim=-1)[:, :, None, None]
         kpts_n = (kpts - center) / scaling
-        x = descs + self.kenc(torch.cat([kpts_n, scores[..., None]], dim=-1), train)
+        kenc_in = torch.cat([kpts_n, scores[..., None]], dim=-1)
+        if cdtype == torch.bfloat16:
+            kenc_in, descs = kenc_in.to(cdtype), descs.to(cdtype)
+        x = descs + self.kenc(kenc_in, train, cdtype)
 
         tokens = x.reshape(B, V * K, D)
         xmask = (cross_view_mask(V, K, device=descs.device)
@@ -184,17 +218,19 @@ class MultiViewMatcher(nn.Module):
             layer = getattr(self, f"gnn_{li}_{layer_type}")
             if layer_type == "self":
                 t = tokens.reshape(B * V, K, D)
-                tokens = layer(t, t, 1, K, train=train).reshape(B, V * K, D)
+                tokens = layer(t, t, 1, K, train=train, dtype=cdtype).reshape(B, V * K, D)
             else:
-                tokens = layer(tokens, tokens, V, K, mask=xmask, train=train)
+                tokens = layer(tokens, tokens, V, K, mask=xmask, train=train, dtype=cdtype)
 
-        mdesc = self.final_proj(tokens).reshape(B, V, K, D)
+        mdesc = dense(self.final_proj, tokens, cdtype).reshape(B, V, K, D)
         # pairs (i, j) ordered by j, then i: the lower triangle of (j, i), row-major
         idx_j, idx_i = torch.tril_indices(V, V, -1, device=descs.device)
         P = idx_i.shape[0]
         mdesc_i = mdesc[:, idx_i]  # (B, P, K, D)
         mdesc_j = mdesc[:, idx_j]
-        pair_scores = torch.einsum("bpkd,bpld->bpkl", mdesc_i, mdesc_j) / (D ** 0.25)
+        # float32 products of the (bfloat16) descriptors, float32 from here on
+        pair_scores = torch.einsum("bpkd,bpld->bpkl", at_least_f32(mdesc_i),
+                                   at_least_f32(mdesc_j)) / (D ** 0.25)
         flat = pair_scores.reshape(B * P, K, K)
         if cfg.sinkhorn_impl == "cuda":
             log_p = log_optimal_transport_cuda(flat, self.bin_score, cfg.sinkhorn_iterations)
@@ -215,9 +251,10 @@ class MultiViewMatcher(nn.Module):
         if cfg.conf_mlp:
             gather_idx = torch.clamp(out["matches0"], 0, K - 1).to(torch.int64)
             matched_j = torch.gather(mdesc_j, 2, gather_idx[..., None].expand(B, P, K, D))
-            feats = torch.cat([mdesc_i, matched_j, out["matching_scores0"][..., None]],
-                              dim=-1)
-            out["conf_scores"] = torch.sigmoid(self.conf_mlp(feats, train))[..., 0]
+            feats = torch.cat([mdesc_i, matched_j,
+                               out["matching_scores0"][..., None].to(mdesc_i.dtype)], dim=-1)
+            conf = at_least_f32(self.conf_mlp(feats, train, cdtype))
+            out["conf_scores"] = torch.sigmoid(conf)[..., 0]
         return out
 
 

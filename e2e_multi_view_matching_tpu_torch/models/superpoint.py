@@ -1,6 +1,11 @@
 """SuperPoint keypoint detector + descriptor (PyTorch).
 
-Counterpart of `e2e_multi_view_matching_tpu/models/superpoint.py`, f32.
+Counterpart of `e2e_multi_view_matching_tpu/models/superpoint.py`, in float32
+or with a bfloat16 trunk (`compute_dtype="bfloat16"`, as flax's
+`nn.Conv(dtype=bfloat16)`: parameters stay float32 and are cast per call, each
+convolution rounds its result to bfloat16 and then adds the bfloat16 bias;
+ReLU, the extent masks and the pooling run in bfloat16; the heads are cast to
+float32 before the softmax and the descriptor normalization).
 Exact-size inputs, or shape-bucketed ones: images zero-padded to a common
 canvas, each with its true (h, w) in `valid_size`, which gives inside each
 extent what the exact-size run gives. With `fill_with_random_keypoints`
@@ -44,8 +49,9 @@ class SuperPointNet(nn.Module):
     run's (without the masking the pad region grows bias-driven activations
     that bleed into the cells at the boundary)."""
 
-    def __init__(self, descriptor_dim=256):
+    def __init__(self, descriptor_dim=256, compute_dtype="float32"):
         super().__init__()
+        self.dtype = {"float32": torch.float32, "bfloat16": torch.bfloat16}[compute_dtype]
         c1, c2, c3, c4, c5 = 64, 64, 128, 128, 256
         conv3 = lambda i, o: nn.Conv2d(i, o, 3, padding=1)
         self.conv1a = conv3(1, c1)
@@ -61,7 +67,14 @@ class SuperPointNet(nn.Module):
         self.convDa = conv3(c4, c5)
         self.convDb = nn.Conv2d(c5, descriptor_dim, 1)
 
+    def _conv(self, layer, x):
+        if self.dtype != torch.bfloat16:
+            return layer(x)
+        y = F.conv2d(x, layer.weight.to(self.dtype), None, layer.stride, layer.padding)
+        return y + layer.bias.to(self.dtype)[None, :, None, None]
+
     def forward(self, image, valid_size=None):
+        conv = self._conv
         ext = None if valid_size is None else [valid_size[:, 0].to(torch.int64),
                                                 valid_size[:, 1].to(torch.int64)]
 
@@ -80,19 +93,23 @@ class SuperPointNet(nn.Module):
             return m(x)
 
         x = image.permute(0, 3, 1, 2)
-        x = m(F.relu(self.conv1a(x)))
-        x = m(F.relu(self.conv1b(x)))
+        if self.dtype == torch.bfloat16:
+            x = x.to(self.dtype)
+        x = m(F.relu(conv(self.conv1a, x)))
+        x = m(F.relu(conv(self.conv1b, x)))
         x = pool(x)
-        x = m(F.relu(self.conv2a(x)))
-        x = m(F.relu(self.conv2b(x)))
+        x = m(F.relu(conv(self.conv2a, x)))
+        x = m(F.relu(conv(self.conv2b, x)))
         x = pool(x)
-        x = m(F.relu(self.conv3a(x)))
-        x = m(F.relu(self.conv3b(x)))
+        x = m(F.relu(conv(self.conv3a, x)))
+        x = m(F.relu(conv(self.conv3b, x)))
         x = pool(x)
-        x = m(F.relu(self.conv4a(x)))
-        x = m(F.relu(self.conv4b(x)))
-        heat = self.convPb(m(F.relu(self.convPa(x)))).permute(0, 2, 3, 1)
-        desc = self.convDb(m(F.relu(self.convDa(x)))).permute(0, 2, 3, 1)
+        x = m(F.relu(conv(self.conv4a, x)))
+        x = m(F.relu(conv(self.conv4b, x)))
+        heat = conv(self.convPb, m(F.relu(conv(self.convPa, x)))).permute(0, 2, 3, 1)
+        desc = conv(self.convDb, m(F.relu(conv(self.convDa, x)))).permute(0, 2, 3, 1)
+        if self.dtype == torch.bfloat16:  # the heads in float32 from here on
+            heat, desc = heat.float(), desc.float()
         desc = desc / (torch.linalg.vector_norm(desc, dim=-1, keepdim=True) + 1e-8)
         # whole cells beyond the extent are zero, so that bilinear taps into
         # them add nothing (the exact-size run's taps off the grid are zero)
@@ -127,10 +144,10 @@ class SuperPoint(nn.Module):
 
     def __init__(self, config=SuperPointConfig()):
         super().__init__()
-        if config.compute_dtype != "float32":
-            raise NotImplementedError("only float32 is ported")
+        if config.compute_dtype not in ("float32", "bfloat16"):
+            raise ValueError("compute_dtype must be float32 or bfloat16")
         self.config = config
-        self.net = SuperPointNet(config.descriptor_dim)
+        self.net = SuperPointNet(config.descriptor_dim, config.compute_dtype)
 
     @torch.no_grad()
     def forward(self, image, valid_size=None, *, generator=None):

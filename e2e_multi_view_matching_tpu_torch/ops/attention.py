@@ -3,7 +3,11 @@
 Counterpart of `e2e_multi_view_matching_tpu/ops/attention.py`. Heads split
 contiguously, `reshape(B, S, h, dh)`, as the JAX package does (not the
 upstream SuperGlue interleave). Masked-out logits are filled with -1e9 and the
-softmax denominator carries +1e-9, the JAX constants.
+softmax denominator carries +1e-9, the JAX constants. The dtypes are the JAX
+package's too: float32 logits and softmax whatever the inputs' type, the
+probabilities rounded to v's type before the float32-accumulated product with
+v, the output in q's type (for bfloat16 inputs: logits from exact products,
+`attn` rounded to bfloat16, the output rounded once).
 """
 
 import math
@@ -11,6 +15,10 @@ import math
 import torch
 
 _NEG_INF = -1e9
+
+
+def at_least_f32(x):
+    return x.float() if x.dtype in (torch.bfloat16, torch.float16) else x
 
 
 def multi_head_attention(q, k, v, num_heads, mask=None):
@@ -26,9 +34,11 @@ def multi_head_attention(q, k, v, num_heads, mask=None):
     S = k.shape[1]
     h = num_heads
     dh = D // h
-    qh = q.reshape(B, Q, h, dh)
-    kh = k.reshape(B, S, h, dh)
-    vh = v.reshape(B, S, h, dh)
+    # bfloat16 operands go in as float32: the products of bfloat16 values are
+    # exact in float32, and a bfloat16 einsum would round its result
+    qh = at_least_f32(q.reshape(B, Q, h, dh))
+    kh = at_least_f32(k.reshape(B, S, h, dh))
+    vh = at_least_f32(v.reshape(B, S, h, dh))
     logits = torch.einsum("bqhd,bshd->bhqs", qh, kh) / math.sqrt(dh)
     if mask is not None:
         if mask.dim() == 2:
@@ -36,8 +46,9 @@ def multi_head_attention(q, k, v, num_heads, mask=None):
         logits = logits.masked_fill(~mask[:, None], _NEG_INF)
     attn = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
     attn = attn / (attn.sum(dim=-1, keepdim=True) + 1e-9)
+    attn = at_least_f32(attn.to(v.dtype))
     out = torch.einsum("bhqs,bshd->bqhd", attn, vh)
-    return out.reshape(B, Q, D)
+    return out.reshape(B, Q, D).to(q.dtype)
 
 
 def _view_ids(n_views, n_kpts, device):

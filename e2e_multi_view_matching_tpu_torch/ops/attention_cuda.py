@@ -10,10 +10,16 @@ through the plain version, as in JAX. A CUDA tensor launches a kernel or
 raises; a CPU tensor takes the plain versions (the same autograd wiring under
 grad).
 
-Kernels (`ops/csrc/attention_cuda.cu`): `attn_fwd` replaces `_attn_kernel`,
-`cross_attn_fwd` `_cross_attn_kernel`, `cross_attn_fwd_lse`
+Kernels (`ops/csrc/attention_cuda.cu`, float32): `attn_fwd` replaces
+`_attn_kernel`, `cross_attn_fwd` `_cross_attn_kernel`, `cross_attn_fwd_lse`
 `_cross_attn_lse_kernel`, `cross_attn_bwd_dq` `_cross_attn_bwd_dq_kernel`,
-`cross_attn_bwd_dkv` `_cross_attn_bwd_dkv_kernel`.
+`cross_attn_bwd_dkv` `_cross_attn_bwd_dkv_kernel`. Given bfloat16 q, k, v,
+`attn_fwd` and `cross_attn_fwd` launch the tensor-core kernels of
+`ops/csrc/attention_bf16_cuda.cu` (counted as `attn_fwd_bf16` and
+`cross_attn_fwd_bf16`), the Pallas kernels' bfloat16 instantiations: scores,
+softmax and P V in float32, the output rounded to bfloat16 once
+(`plain_view_attention` on bfloat16 inputs is their plain version). The
+training kernels take float32 only: bfloat16 under grad raises.
 """
 
 import ctypes
@@ -29,6 +35,7 @@ from e2e_multi_view_matching_tpu_torch.ops.attention import (
 )
 
 _MODES = {"full": 0, "self": 1, "cross": 2}
+_FWD_DTYPES = (torch.float32, torch.bfloat16)  # the two forward kernels' types
 _HEAD_DIMS = (16, 32, 64)
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
@@ -39,28 +46,44 @@ _SIGNATURES = {
     "cross_attn_bwd_dkv": (_I, [_P] * 8 + [_I] * 5 + [_F, _P]),
     "attn_kernel_info": (_I, [_I, _I, _P]),
 }
+_BF16_SIGNATURES = {
+    "attn_fwd_bf16": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P]),
+    "cross_attn_fwd_bf16": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P]),
+    "attn_bf16_kernel_info": (_I, [_I, _I, _P]),
+}
 _KERNELS = {("attn_fwd", "full"): 0, ("attn_fwd", "self"): 1, ("attn_fwd", "cross"): 2,
             ("cross_attn_fwd", "cross"): 3, ("cross_attn_fwd_lse", "cross"): 4,
-            ("cross_attn_bwd_dq", "cross"): 5, ("cross_attn_bwd_dkv", "cross"): 6}
+            ("cross_attn_bwd_dq", "cross"): 5, ("cross_attn_bwd_dkv", "cross"): 6,
+            ("attn_fwd_bf16", "full"): 0, ("attn_fwd_bf16", "self"): 1,
+            ("attn_fwd_bf16", "cross"): 2, ("cross_attn_fwd_bf16", "cross"): 3}
+BF16_TRAINING = ("bfloat16 training (the bfloat16 cross-attention training kernels and "
+                 "the self layers' bfloat16 VJP) is the next slice of the port")
 
 # kernel launches since the last reset, one per wrapper call that launched
 launches = {"attn_fwd": 0, "cross_attn_fwd": 0, "cross_attn_fwd_lse": 0,
-            "cross_attn_bwd_dq": 0, "cross_attn_bwd_dkv": 0}
+            "cross_attn_bwd_dq": 0, "cross_attn_bwd_dkv": 0, "attn_fwd_bf16": 0,
+            "cross_attn_fwd_bf16": 0}
 
 
 def _lib():
     return cuda_build.load("attention_cuda", _SIGNATURES)
 
 
-def _check(*xs, shape=None):
+def _lib_bf16():
+    return cuda_build.load("attention_bf16_cuda", _BF16_SIGNATURES)
+
+
+def _check(*xs, shape=None, dtypes=(torch.float32,)):
+    """CUDA, contiguous, 16-byte aligned, one shape and one dtype of `dtypes`."""
     shape = xs[0].shape if shape is None else shape
     for x in xs:
         if not x.is_cuda:
             raise ValueError("the attention kernels take CUDA tensors")
-        if x.dtype != torch.float32:
-            raise ValueError(f"the attention kernels take float32, got {x.dtype}")
-        if not x.is_contiguous():
-            raise ValueError("the attention kernels take contiguous tensors")
+        if x.dtype not in dtypes or x.dtype != xs[0].dtype:
+            raise ValueError(f"this attention kernel takes one dtype of {dtypes}, got "
+                             f"{[y.dtype for y in xs]}")
+        if not x.is_contiguous() or x.data_ptr() % 16:
+            raise ValueError("the attention kernels take contiguous 16-byte aligned tensors")
         if x.shape != shape:
             raise ValueError(f"attention kernel operands must share the shape {tuple(shape)}")
     if len(shape) != 3:
@@ -85,27 +108,35 @@ def _stream(x):
 
 
 def attn_fwd(q, k, v, n_kpts, mode, scale):
-    """Masked attention kernel on split heads (BH, S, dh), mode full/self/cross."""
-    _check(q, k, v)
+    """Masked attention kernel on split heads (BH, S, dh), mode full/self/cross;
+    float32 or bfloat16 (the tensor-core kernel, counted as `attn_fwd_bf16`)."""
+    _check(q, k, v, dtypes=_FWD_DTYPES)
     if mode not in _MODES:
         raise ValueError(f"attn_fwd takes a mode in {tuple(_MODES)}")
     BH, S, dh = q.shape
     out = torch.empty_like(q)
-    _launched("attn_fwd", _lib().attn_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), BH, S, dh, n_kpts,
-        _MODES[mode], scale, _stream(q)))
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), BH, S, dh, n_kpts,
+            _MODES[mode], scale, _stream(q))
+    if q.dtype == torch.bfloat16:
+        _launched("attn_fwd_bf16", _lib_bf16().attn_fwd_bf16(*args))
+    else:
+        _launched("attn_fwd", _lib().attn_fwd(*args))
     return out
 
 
 def cross_attn_fwd(q, k, v, n_views, n_kpts, scale):
-    """Cross-view online-softmax kernel on split heads (BH, S = V*K, dh)."""
-    _check(q, k, v)
+    """Cross-view online-softmax kernel on split heads (BH, S = V*K, dh);
+    float32 or bfloat16 (the tensor-core kernel, counted as `cross_attn_fwd_bf16`)."""
+    _check(q, k, v, dtypes=_FWD_DTYPES)
     _check_cross(q, n_views, n_kpts)
     BH, S, dh = q.shape
     out = torch.empty_like(q)
-    _launched("cross_attn_fwd", _lib().cross_attn_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), BH, S, dh, n_views,
-        n_kpts, scale, _stream(q)))
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), BH, S, dh, n_views,
+            n_kpts, scale, _stream(q))
+    if q.dtype == torch.bfloat16:
+        _launched("cross_attn_fwd_bf16", _lib_bf16().cross_attn_fwd_bf16(*args))
+    else:
+        _launched("cross_attn_fwd", _lib().cross_attn_fwd(*args))
     return out
 
 
@@ -127,7 +158,11 @@ def kernel_info(name, dh, mode="cross"):
     runtime reports it: {blocks_per_sm, registers, local_bytes, shared_bytes,
     tile_rows (rows a block owns: query rows, key rows for dk/dv)}."""
     info = (ctypes.c_int * 5)()
-    rc = _lib().attn_kernel_info(dh, _KERNELS[(name, mode)], ctypes.addressof(info))
+    if name.endswith("_bf16"):
+        rc = _lib_bf16().attn_bf16_kernel_info(dh, _KERNELS[(name, mode)],
+                                               ctypes.addressof(info))
+    else:
+        rc = _lib().attn_kernel_info(dh, _KERNELS[(name, mode)], ctypes.addressof(info))
     if rc != 0:
         raise RuntimeError(f"attn_kernel_info failed for {name} (code {rc})")
     return dict(zip(("blocks_per_sm", "registers", "local_bytes", "shared_bytes",
@@ -168,13 +203,47 @@ def cross_attn_bwd_dkv(q, k, v, do, lse, dvec, n_views, n_kpts, scale):
 
 
 def plain_view_attention(q, k, v, num_heads, n_views, n_kpts, mode):
-    """The plain PyTorch version of the forward kernels (masked `multi_head_attention`)."""
+    """The plain PyTorch version of the forward kernels (masked `multi_head_attention`).
+
+    bfloat16 inputs take the kernels' arithmetic, the Pallas bodies': q, k, v
+    upcast to float32, the float32 attention (P V with P in float32), the
+    output rounded to bfloat16 once (not `multi_head_attention`'s bfloat16
+    semantics, which round the probabilities to bfloat16 before P V)."""
     if mode == "full":
         mask = None
     else:
         fn = cross_view_mask if mode == "cross" else self_view_mask
         mask = fn(n_views, n_kpts, device=q.device)
+    if q.dtype == torch.bfloat16:
+        out = multi_head_attention(q.float(), k.float(), v.float(), num_heads, mask=mask)
+        return out.to(torch.bfloat16)
     return multi_head_attention(q, k, v, num_heads, mask=mask)
+
+
+def bf16_ulp(x):
+    """One bfloat16 ulp at |x| (the spacing of bfloat16 in x's binade), float32."""
+    _, e = torch.frexp(x.float().abs().clamp_min(torch.finfo(torch.float32).tiny))
+    return torch.ldexp(torch.ones_like(x, dtype=torch.float32), e - 8)
+
+
+# float32 sums on the tensor cores align each addend to the largest and drop
+# the bits below (truncation, not rounding): an output of the bfloat16 kernels
+# carries up to ~2^-20 of its absolute scale (sum p |v| / l) where IEEE float32
+# sums carry ~2^-24 (measured on an H100 at 1600 keys, |v| ~ 2).
+BF16_SUM_TOL = 2.0 ** -18
+
+
+def bf16_ulp_error(out, ref, abs_scale=None):
+    """max |out - ref| / (one bfloat16 ulp of ref + 1e-6 [+ BF16_SUM_TOL *
+    abs_scale]): the one-ulp gate holds at <= 1. The 1e-6 covers outputs that
+    cancel to near 0, where the float32 sums' rounding exceeds their ulp;
+    `abs_scale` (the attention of |v|, sum p |v| / l per output) widens it to
+    the kernels' tensor-core sums."""
+    d = (out.float() - ref.float()).abs()
+    slack = bf16_ulp(ref) + 1e-6
+    if abs_scale is not None:
+        slack = slack + BF16_SUM_TOL * abs_scale.float()
+    return float((d / slack).max())
 
 
 def cross_attn_fwd_lse_plain(q, k, v, n_views, n_kpts, scale):
@@ -230,6 +299,8 @@ class _FusedViewAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, num_heads, n_views, n_kpts, mode):
+        if torch.bfloat16 in (q.dtype, k.dtype, v.dtype):
+            raise NotImplementedError(f"fused_view_attention under grad: {BF16_TRAINING}")
         ctx.structure = (num_heads, n_views, n_kpts, mode)
         ctx.flash = mode == "cross" and n_views > 1
         if not ctx.flash:

@@ -18,7 +18,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "cuda"
-SOURCES = ("attention_cuda", "sinkhorn_cuda")
+SOURCES = ("attention_cuda", "attention_bf16_cuda", "sinkhorn_cuda")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
 

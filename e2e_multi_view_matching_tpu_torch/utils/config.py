@@ -30,8 +30,10 @@ def add_generic_arguments(parser):
                              "without grad, log domain with stash + reverse sweep under "
                              "grad), xla = plain log domain, mxu = plain scaling domain")
     parser.add_argument("--compute_dtype", type=str, default="float32",
-                        choices=["float32"],
-                        help="matmul compute dtype (bfloat16 compute is not ported yet)")
+                        choices=["float32", "bfloat16"],
+                        help="SuperPoint-trunk / matcher compute dtype (parameters, the "
+                             "pair scores and the Sinkhorn stay float32; bfloat16 runs "
+                             "the bfloat16 attention kernels; eval only for now)")
     parser.add_argument("--device", type=str, default="cuda",
                         help="torch device; the CPU runs only when asked for")
     return parser
@@ -57,14 +59,17 @@ def resolve_kernel_impls(opt, device):
     return opt
 
 
-def strict_float32(opt):
-    """f32 means f32: unless `opt.compute_dtype` asks for another type, turn
-    off TF32, in which cuDNN runs float32 convolutions by default on Ampere
-    and later (~3 decimal digits); the reference semantics are full float32
-    for SuperPoint and the matcher."""
-    if getattr(opt, "compute_dtype", "float32") == "float32":
-        torch.backends.cudnn.allow_tf32 = False
-        torch.backends.cuda.matmul.allow_tf32 = False
+def strict_float32():
+    """f32 means f32, in every compute dtype: turn off TF32, in which cuDNN
+    runs float32 convolutions by default on Ampere and later (~3 decimal
+    digits). The reference semantics are full float32 for SuperPoint and the
+    matcher, and in bfloat16 mode for what stays float32 there (the pair
+    scores, BatchNorm, the pose stage, the descriptor normalization); and
+    bfloat16 products sum in float32 (no reduced-precision reductions in
+    cuBLAS), as XLA's do."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
 
 def to_device(arr, device):

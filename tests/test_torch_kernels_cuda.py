@@ -1,6 +1,7 @@
 """The hand-written attention kernels on the card: the register-tiled forward
-kernels (`attn_fwd` in its three modes, `cross_attn_fwd`, `cross_attn_fwd_lse`)
-and backward kernels (`cross_attn_bwd_dq`, `cross_attn_bwd_dkv`) at ragged and
+kernels (`attn_fwd` in its three modes, `cross_attn_fwd`, `cross_attn_fwd_lse`),
+their bfloat16 tensor-core counterparts (`attn_fwd` and `cross_attn_fwd` on
+bfloat16 tensors), the backward kernels (`cross_attn_bwd_dq`, `cross_attn_bwd_dkv`) at ragged and
 tiny shapes, the cross-attention kernels of the training path (the forward
 with the LSE stash, dq and dk/dv) against their plain PyTorch versions, and
 the autograd function that joins them.
@@ -82,6 +83,81 @@ class TestForwardKernels:
             info = ac.kernel_info(name, dh, mode)
             assert info["local_bytes"] == 0, (name, mode, info)
             assert info["blocks_per_sm"] >= 2, (name, mode, info)
+
+
+@pytest.mark.cuda
+class TestBf16ForwardKernels:
+    """The bfloat16 tensor-core forward kernels (`attn_fwd` in its three modes,
+    `cross_attn_fwd`; route: nvcc-built CUDA C++, sm_90a, mma.sync bf16) against
+    their plain version, `plain_view_attention` on the same bfloat16 tensors
+    (float32 arithmetic on the upcast inputs, the output rounded once): every
+    element within one bfloat16 ulp of the reference + 1e-6 + 2^-18 of its
+    absolute scale sum p |v| / l (`bf16_ulp_error` <= 1; the kernels sum in
+    another order, so a rounding may land on the neighbouring bfloat16 value,
+    and the tensor cores truncate in their float32 sums, which shows on the
+    outputs that cancel to near 0); two runs give the same bits; only the
+    bfloat16 counters move."""
+
+    @pytest.mark.parametrize("V,K,dh", FWD_SHAPES)
+    def test_attn_fwd_bf16_modes_match_plain(self, cuda, V, K, dh):
+        q, k, v = (x.bfloat16() for x in _fwd_inputs(cuda, V, K, dh))
+        before = dict(ac.launches)
+        for mode in ("full", "self", "cross"):
+            o = ac.attn_fwd(q, k, v, K, mode, 1.0 / dh ** 0.5)
+            assert o.dtype == torch.bfloat16
+            ref = ac.plain_view_attention(q, k, v, 1, V, K, mode)
+            scale = ac.plain_view_attention(q.float(), k.float(), v.float().abs(), 1, V, K,
+                                            mode)
+            assert ac.bf16_ulp_error(o, ref, scale) <= 1.0, mode
+            assert torch.equal(o, ac.attn_fwd(q, k, v, K, mode, 1.0 / dh ** 0.5)), mode
+        assert ac.launches["attn_fwd_bf16"] == before["attn_fwd_bf16"] + 6
+        assert ac.launches["attn_fwd"] == before["attn_fwd"]
+
+    @pytest.mark.parametrize("V,K,dh", FWD_SHAPES)
+    def test_cross_fwd_bf16_matches_plain(self, cuda, V, K, dh):
+        q, k, v = (x.bfloat16() for x in _fwd_inputs(cuda, V, K, dh))
+        before = dict(ac.launches)
+        o = ac.cross_attn_fwd(q, k, v, V, K, 1.0 / dh ** 0.5)
+        assert o.dtype == torch.bfloat16
+        scale = ac.plain_view_attention(q.float(), k.float(), v.float().abs(), 1, V, K, "cross")
+        ref = ac.plain_view_attention(q, k, v, 1, V, K, "cross")
+        assert ac.bf16_ulp_error(o, ref, scale) <= 1.0
+        assert torch.equal(o, ac.cross_attn_fwd(q, k, v, V, K, 1.0 / dh ** 0.5))
+        assert ac.launches["cross_attn_fwd_bf16"] == before["cross_attn_fwd_bf16"] + 2
+        assert ac.launches["cross_attn_fwd"] == before["cross_attn_fwd"]
+
+    @pytest.mark.parametrize("dh", (16, 32, 64))
+    def test_bf16_forward_kernels_do_not_spill(self, cuda, dh):
+        """Local memory 0 (no spills) and at least 2 blocks per SM, from the
+        CUDA runtime's view of each bfloat16 forward kernel."""
+        for name, mode in (("attn_fwd_bf16", "full"), ("attn_fwd_bf16", "self"),
+                           ("attn_fwd_bf16", "cross"), ("cross_attn_fwd_bf16", "cross")):
+            info = ac.kernel_info(name, dh, mode)
+            assert info["local_bytes"] == 0, (name, mode, info)
+            assert info["blocks_per_sm"] >= 2, (name, mode, info)
+
+    def test_bf16_forward_launches(self, cuda):
+        """`fused_view_attention` on bfloat16 CUDA tensors without grad launches
+        the bfloat16 kernels (self layers: `attn_fwd` in mode full on per-view
+        tokens; cross layers: `cross_attn_fwd`), none of the float32 ones, and
+        agrees with the plain version within one bfloat16 ulp."""
+        g = torch.Generator(device=cuda).manual_seed(2)
+        V, K, h, dh = 3, 72, 4, 32
+        q, k, v = (torch.randn(2, V * K, h * dh, generator=g, device=cuda).bfloat16()
+                   for _ in range(3))
+        before = dict(ac.launches)
+        out = ac.fused_view_attention(q, k, v, h, V, K, "cross")
+        scale = ac.plain_view_attention(q.float(), k.float(), v.float().abs(), h, V, K, "cross")
+        ref = ac.plain_view_attention(q, k, v, h, V, K, "cross")
+        assert ac.bf16_ulp_error(out, ref, scale) <= 1
+        t = q.reshape(2 * V, K, h * dh)
+        out = ac.fused_view_attention(t, t, t, h, 1, K, "full")
+        scale = ac.plain_view_attention(t.float(), t.float(), t.float().abs(), h, 1, K, "full")
+        assert ac.bf16_ulp_error(out, ac.plain_view_attention(t, t, t, h, 1, K, "full"),
+                                 scale) <= 1
+        moved = {n: ac.launches[n] - before[n] for n in before}
+        assert moved == {**{n: 0 for n in before}, "attn_fwd_bf16": 1,
+                         "cross_attn_fwd_bf16": 1}
 
 
 @pytest.mark.cuda
@@ -179,18 +255,29 @@ class TestCrossKernels:
             assert ac.launches[name] == before[name] + 1, name
 
     def test_wrappers_raise_instead_of_falling_back(self, cuda):
-        """bf16 and an unsupported head width raise on CUDA tensors."""
+        """The bfloat16 training path raises on CUDA tensors (the training
+        kernels take float32 only, and bfloat16 under grad is the next slice
+        of the port), as do mixed dtypes and an unsupported head width."""
         x = torch.zeros(2, 48, 16, device=cuda)
         r = torch.zeros(2, 48, device=cuda)
+        xb = x.bfloat16()
         with pytest.raises(ValueError):
-            ac.cross_attn_fwd_lse(x.bfloat16(), x.bfloat16(), x.bfloat16(), 3, 16, 0.25)
+            ac.cross_attn_fwd_lse(xb, xb, xb, 3, 16, 0.25)
         with pytest.raises(ValueError):
-            ac.cross_attn_bwd_dq(x, x, x, x.bfloat16(), r, r, 3, 16, 0.25)
+            ac.cross_attn_bwd_dq(xb, xb, xb, xb, r, r, 3, 16, 0.25)
+        with pytest.raises(ValueError):
+            ac.cross_attn_bwd_dq(x, x, x, xb, r, r, 3, 16, 0.25)
+        with pytest.raises(ValueError):
+            ac.cross_attn_bwd_dkv(xb, xb, xb, xb, r, r, 3, 16, 0.25)
+        with pytest.raises(ValueError):
+            ac.cross_attn_fwd(x, xb, x, 3, 16, 0.25)
         y = torch.zeros(2, 48, 8, device=cuda)
         with pytest.raises(ValueError):
             ac.cross_attn_bwd_dkv(y, y, y, y, r, r, 3, 16, 0.25)
         with pytest.raises(ValueError):
-            ac.fused_view_attention(torch.zeros(1, 48, 32, device=cuda, dtype=torch.bfloat16),
-                                    *(torch.zeros(1, 48, 32, device=cuda,
-                                                  dtype=torch.bfloat16),) * 2,
-                                    2, 3, 16, "cross")
+            ac.attn_fwd(y.bfloat16(), y.bfloat16(), y.bfloat16(), 16, "full", 0.25)
+        for mode in ("cross", "full"):
+            qkv = [torch.zeros(1, 48, 32, device=cuda, dtype=torch.bfloat16,
+                               requires_grad=True) for _ in range(3)]
+            with pytest.raises(NotImplementedError, match="next slice"):
+                ac.fused_view_attention(*qkv, 2, 3, 16, mode)
