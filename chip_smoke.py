@@ -8,7 +8,7 @@ Phases, each fatal on failure:
                    one process per source, started together); a ptxas spill
                    in an attention kernel (float32 or bfloat16) fails it.
   2. device     -- print the card's name and power limit (nvidia-smi).
-  3. kernel     -- each of the eleven kernels against its plain PyTorch version
+  3. kernel     -- each of the fourteen kernels against its plain PyTorch version
                    at the shapes of its main path (eval: V=5, K=1024; training:
                    V=5, K=400 and 80 pair matrices of 401 x 401, 100
                    iterations; the kernels both paths launch at both), with
@@ -32,7 +32,18 @@ Phases, each fatal on failure:
                    same eval, pair and K = 2048 shapes and in every mode at
                    ragged ones, held to one bfloat16 ulp of their plain twin
                    (+ 2^-18 of the output's absolute scale), beside SDPA on
-                   the same bfloat16 inputs and the float32 kernel.
+                   the same bfloat16 inputs and the float32 kernel. The
+                   bfloat16 training kernels (`cross_attn_fwd_lse_bf16`,
+                   `cross_attn_bwd_dq_bf16`, `cross_attn_bwd_dkv_bf16`) at the
+                   training shape (32 x 2000 x 64) and at the eval and pair
+                   shapes, held to the one-ulp gate of their bfloat16 twins
+                   (the backward's widened by the bfloat16 roundings of p and
+                   ds that may flip), the same bits on two runs, beside the
+                   twin, SDPA on bfloat16 (forward, and its backward) and the
+                   float32 kernels. `sinkhorn_scaling` at sharp pair scores
+                   (a seeded two-view matcher's final projection x 4): the
+                   kernel, its twin and the float32 log domain against the
+                   float64 log domain (a measurement).
                    Bounds: the largest of FP32 (bf16: tensor-core bf16)
                    operations, exponentials and bytes at the card's peak
                    rates.
@@ -75,7 +86,20 @@ Phases, each fatal on failure:
                    translation losses, the guard's skips, launch counts per
                    step, no host sync inside a step, first-step gradients of
                    kernels against plain at a conditioned point.
-  9. cli        -- both command lines through `python -m` from a ScanNet-format
+  9. train_bf16 -- bfloat16 training, `cli.train.train --compute_dtype
+                   bfloat16` at the train_path width: 6 stage-1 steps on the
+                   bfloat16 kernels and on the plain bfloat16 versions from
+                   the same seeded state, then 3 stage-2 steps (`--pose_loss
+                   --init_exp_name`) from the kernel run. Finite and falling
+                   loss, exact launches a step (7 `attn_fwd_bf16`, 21 each of
+                   the three bfloat16 training kernels, 1 `sinkhorn_log_stash`,
+                   1 `sinkhorn_bwd`; a validation batch 7 / 21 / 1; no float32
+                   attention kernel), no host sync inside a step, first-step
+                   gradients no farther from the float32 kernels' than 1.5 x
+                   the plain bfloat16 run's + 1e-3 (at the initial weights and
+                   at the conditioned point); steps/s and a per-stage
+                   breakdown.
+ 10. cli        -- both command lines through `python -m` from a ScanNet-format
                    tree (sphere-field scenes at 480x640 with exact depth,
                    written by `data/synthetic.write_scannet_format`): stage 1
                    of `cli.train` (V=5, K=400, B=8, jitter on, 2 steps, the
@@ -94,8 +118,9 @@ Phases, each fatal on failure:
                    of the loop spent waiting on data, while the loader runs
                    (steps 6-17) and after it has finished (18-20). Last, the
                    eval command line once more with `--compute_dtype
-                   bfloat16` (exit 0, finite AUCs).
- 10. pairs      -- the two-view pair benchmark: `cli.eval_pairs` through
+                   bfloat16` (exit 0, finite AUCs), and both training stages
+                   with `--compute_dtype bfloat16` (exit 0, finite losses).
+ 11. pairs      -- the two-view pair benchmark: `cli.eval_pairs` through
                    `python -m` (w8pt_ba, three AUCs) on 16 ScanNet-format pairs
                    with real ScanNet's 1296x968 color (537 x 720 frames on a
                    640 x 768 bucket, K = 1024), a seeded two-view matcher (9 x
@@ -176,6 +201,16 @@ TRAIN_GRAD_MEDIAN_TOL = 1e-3
 TRAIN_GRAD_F64_FACTOR = 3.0  # kernels' distance to float64 <= 3 x plain float32's + 1e-3
 TRAIN_GRAD_CONDITIONED_TOL = 2e-4  # every leaf, kernels vs plain, at the conditioned point
 CONDITIONED_RESCALE = {"q_proj": 1 / 4, "k_proj": 1 / 4, "final_proj": 1 / 32}
+# bfloat16 training, first-step gradients of the bfloat16 kernel run against
+# the float32 kernels' on the same weights, SuperPoint outputs and GT matches:
+# two equally faithful bfloat16 runs (kernels, plain `multi_head_attention`)
+# round at other places and differ a lot at random init (the saturated
+# softmaxes of 28 layers), so the kernel run is held in a relative form, on
+# the worst and the median leaf: no farther from float32 than BF16_GRAD_FACTOR
+# x the plain bfloat16 run's distance + BF16_GRAD_SLACK of the largest leaf
+# norm, at the initial weights and at the conditioned point.
+BF16_GRAD_FACTOR = 1.5
+BF16_GRAD_SLACK = 1e-3
 # Held against its plain version in the kernel phase only: no entry point of
 # the reference package asks for the exact log-domain iteration without grad.
 OFF_PATH_KERNELS = ("sinkhorn_log",)
@@ -611,6 +646,192 @@ def _cross_attn_train_records(g):
     return records
 
 
+def _cross_attn_train_bf16_records(g, f32_records):
+    """The bfloat16 tensor-core kernels of the cross layers under grad
+    (`cross_attn_fwd_lse_bf16`, `cross_attn_bwd_dq_bf16`,
+    `cross_attn_bwd_dkv_bf16`) at the training shape (32, 2000, 64), and at the
+    eval (32, 5120, 64) and pair (V = 2, K = 1024 and 2048) shapes: each
+    against its bfloat16 twin by the one-ulp gate (the backward's with the
+    flips of `cross_attn_bwd_bf16_slack`), the LSE 1e-5 absolute, the same
+    bits on two runs; timed beside the twin, SDPA on the same bfloat16
+    inputs (forward; backward through autograd: dq, dk, dv together) and the
+    float32 kernel on the float32 inputs. Twin, gate and SDPA take the first
+    `nb` of the BH slices (their scores take up to 1 GB a copy)."""
+    import torch
+    import torch.nn.functional as F
+
+    from e2e_multi_view_matching_tpu_torch.ops import attention_cuda as ac
+
+    dev = torch.device("cuda")
+    jax_file = "e2e_multi_view_matching_tpu/ops/attention_pallas.py"
+    names = ("cross_attn_fwd_lse_bf16", "cross_attn_bwd_dq_bf16", "cross_attn_bwd_dkv_bf16")
+    lines = {names[0]: 123, names[1]: 163, names[2]: 190}
+    records = {}
+    for path, BH, V, K in (("train", 32, 5, 400), ("eval, K = 1024", 32, 5, 1024),
+                           ("pairs, K = 1024", 32, 2, 1024), ("pairs, K = 2048", 32, 2, 2048)):
+        S, dh = V * K, 64
+        nb = max(1, min(BH, int(2 ** 28 // (S * S))))
+        q, k, v, do = (torch.randn(BH, S, dh, generator=g, device=dev) for _ in range(4))
+        qb, kb, vb, dob = (x.bfloat16() for x in (q, k, v, do))
+        scale = 1.0 / math.sqrt(dh)
+        o, lse = ac.cross_attn_fwd_lse(qb, kb, vb, V, K, scale)
+        dvec = (dob.float() * o.float()).sum(-1)
+        args = (qb, kb, vb, dob, lse, dvec, V, K, scale)
+        dq = ac.cross_attn_bwd_dq(*args)
+        dk, dv = ac.cross_attn_bwd_dkv(*args)
+        o2, lse2 = ac.cross_attn_fwd_lse(qb, kb, vb, V, K, scale)
+        dk2, dv2 = ac.cross_attn_bwd_dkv(*args)
+        bits = bool(torch.equal(o, o2) and torch.equal(lse, lse2)
+                    and torch.equal(dq, ac.cross_attn_bwd_dq(*args))
+                    and torch.equal(dk, dk2) and torch.equal(dv, dv2))
+        del o2, lse2, dk2, dv2
+        sub = (qb[:nb], kb[:nb], vb[:nb], dob[:nb], lse[:nb], dvec[:nb], V, K, scale)
+        o_p, lse_p = ac.cross_attn_fwd_lse_plain(qb[:nb], kb[:nb], vb[:nb], V, K, scale)
+        abs_scale = ac.plain_view_attention(qb[:nb].float(), kb[:nb].float(),
+                                            vb[:nb].float().abs(), 1, V, K, "cross")
+        gates = {names[0]: ac.bf16_ulp_error(o[:nb], o_p, abs_scale)}
+        errs = {names[0]: float((o[:nb].float() - o_p.float()).abs().max())}
+        lse_err = float((lse[:nb] - lse_p).abs().max())
+        del o_p, lse_p, abs_scale
+        refs = ac.cross_attn_bwd_plain(*sub)
+        slack = ac.cross_attn_bwd_bf16_slack(*sub)
+        for name, outs, idx in ((names[1], (dq,), (0,)), (names[2], (dk, dv), (1, 2))):
+            gates[name] = max(ac.bf16_ulp_error(a[:nb], refs[i], *slack[i])
+                              for a, i in zip(outs, idx))
+            errs[name] = max(float((a[:nb].float() - refs[i].float()).abs().max())
+                             for a, i in zip(outs, idx))
+        del refs, slack
+        torch.cuda.synchronize()
+        ms = {names[0]: cuda_ms(lambda: ac.cross_attn_fwd_lse(qb, kb, vb, V, K, scale), 5),
+              names[1]: cuda_ms(lambda: ac.cross_attn_bwd_dq(*args), 5),
+              names[2]: cuda_ms(lambda: ac.cross_attn_bwd_dkv(*args), 5)}
+        o32, lse32 = ac.cross_attn_fwd_lse(q, k, v, V, K, scale)
+        args32 = (q, k, v, do, lse32, (do * o32).sum(-1), V, K, scale)
+        f32_ms = {names[0]: cuda_ms(lambda: ac.cross_attn_fwd_lse(q, k, v, V, K, scale), 5),
+                  names[1]: cuda_ms(lambda: ac.cross_attn_bwd_dq(*args32), 5),
+                  names[2]: cuda_ms(lambda: ac.cross_attn_bwd_dkv(*args32), 5)}
+        plain_fwd = cuda_ms(lambda: ac.cross_attn_fwd_lse_plain(*sub[:3], V, K, scale), 3)
+        plain_bwd = cuda_ms(lambda: ac.cross_attn_bwd_plain(*sub), 3)
+        mask = ac.cross_view_mask(V, K, device=dev)
+        qs, ks, vs = (x[:nb, None].clone().requires_grad_() for x in (qb, kb, vb))
+        lib_fwd = cuda_ms(lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask), 3)
+        out = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask)
+        lib_bwd = cuda_ms(lambda: torch.autograd.grad(out, (qs, ks, vs), dob[:nb, None],
+                                                      retain_graph=True), 3)
+        del out, qs, ks, vs
+        pairs, rows = float(BH * S * (V - 1) * K), float(BH * S)
+        for name, prods, n_io, plain_ms, lib_ms in (
+                (names[0], 2, 4, plain_fwd, lib_fwd), (names[1], 3, 5, plain_bwd, lib_bwd),
+                (names[2], 4, 6, plain_bwd, lib_bwd)):
+            scalars = 1 if name == names[0] else 2  # LSE; LSE and dvec
+            b_ms, b_by, b_unit = bound(2.0 * prods * pairs * dh, 2 * n_io * rows * dh
+                                       + 4 * scalars * rows, exps=pairs, bf16=True)
+            where = f"{name} at {(BH, S, dh)}"
+            check(gates[name] <= BF16_ULP_TOL, f"{where}: {gates[name]} of the one-ulp gate "
+                  f"(max |err| {errs[name]})")
+            check(bits, f"bfloat16 training kernels at {(BH, S, dh)}: two runs differ")
+            measured = {"max_abs_err": errs[name], "ulp_gate": gates[name], "tol": BF16_ULP_TOL,
+                        "bitwise_repeatable": bits, "ms": ms[name], "plain_ms": plain_ms,
+                        "bound_ms": b_ms, "bound_by": b_by, "bound_unit": b_unit,
+                        "library_ms": lib_ms, "f32_kernel_ms": f32_ms[name],
+                        "shape": [BH, S, dh], **_occupancy(name, BH, S, V, K, dh, "cross")}
+            if name == names[0]:
+                measured.update(lse_abs_err=lse_err, lse_tol=CROSS_LSE_TOL)
+                check(lse_err <= CROSS_LSE_TOL, f"{where}: LSE error {lse_err}")
+            else:
+                measured["plain_and_library_cover"] = "dq, dk and dv together"
+            if nb < BH:
+                measured["compared_batch"] = [nb, BH]
+            check(measured["spill_bytes"] == 0, f"{where}: {measured['spill_bytes']} spill bytes")
+            if path == "train":
+                records[name] = {"name": name, "route": "cuda", "dtype": "bfloat16",
+                                 "source": f"{PKG}/ops/csrc/attention_bf16_cuda.cu",
+                                 "replaces": f"{jax_file}:{lines[name]}", "launches": 0,
+                                 **measured}
+            else:
+                records[name].setdefault("other_shapes", []).append({"path": path, **measured})
+        del q, k, v, do, qb, kb, vb, dob, o, lse, dvec, dq, dk, dv, o32, lse32, args, args32, sub
+        torch.cuda.empty_cache()
+    f32 = {r["name"]: r["ms"] for r in f32_records}
+    records[names[0]]["kernels_fwd_bwd_ms"] = sum(records[n]["ms"] for n in names)
+    records[names[0]]["f32_kernels_fwd_bwd_ms"] = sum(f32[n[:-len("_bf16")]] for n in names)
+    return [records[n] for n in names]
+
+
+def _sharp_pair_scores(K, seed, device):
+    """The pair scores (2, K, K) and dustbin score of a seeded two-view matcher
+    at the default widths (9 x (self + cross), flax's initializers, 256-wide
+    descriptors) with its final projection scaled x 4 (the scores x 16), on
+    seeded keypoints and unit descriptors of two frames, float32 plain ops
+    (also the inputs of the CPU test against JAX's kernel,
+    `tests/test_torch_bf16_train.py`)."""
+    import torch
+
+    from e2e_multi_view_matching_tpu_torch.models import matcher as tm
+    from e2e_multi_view_matching_tpu_torch.models.convert import init_like_flax_
+    from e2e_multi_view_matching_tpu_torch.ops import sinkhorn as tsink
+
+    m = tm.MultiViewMatcher(tm.MatcherConfig(gnn_layers=tm.default_gnn_layers(9, 1)))
+    init_like_flax_(m, torch.Generator().manual_seed(seed))
+    m = m.to(device)
+    with torch.no_grad():
+        m.final_proj.weight.mul_(4.0)
+        m.final_proj.bias.mul_(4.0)
+    seen = {}
+
+    def capture(scores, alpha, n_iters, impl="xla"):
+        seen["scores"], seen["alpha"] = scores, float(alpha)
+        return tsink.log_optimal_transport(scores, alpha, n_iters, impl=impl)
+
+    rng = np.random.default_rng(seed)
+    desc = rng.normal(size=(2, 2, K, 256)).astype(np.float32)
+    desc /= np.linalg.norm(desc, axis=-1, keepdims=True)
+    kpts = rng.uniform(0, 480, (2, 2, K, 2)).astype(np.float32)
+    scores = rng.uniform(0, 1, (2, 2, K)).astype(np.float32)
+    orig, tm.log_optimal_transport = tm.log_optimal_transport, capture
+    try:
+        with torch.no_grad():
+            m(torch.from_numpy(kpts).to(device), torch.from_numpy(scores).to(device),
+              torch.from_numpy(desc).to(device), torch.full((2, 2, 2), 480.0, device=device),
+              full_output=False)
+    finally:
+        tm.log_optimal_transport = orig
+    return seen["scores"], seen["alpha"]
+
+
+def _sinkhorn_sharp():
+    """`sinkhorn_scaling` at sharp scores (the open question of the pair
+    benchmark): the kernel, its plain twin (on the CPU) and the float32 log
+    domain against the float64 log-domain Sinkhorn at the same 100 iterations,
+    in max |p - p64| / max(1, p64), on `_sharp_pair_scores` at the CPU test's
+    draws (K = 64 and 128, seeds 0-3, K = 512, seed 0; scores made on the CPU)
+    and at the pair benchmark's K = 1024 (seeds 0-1, made on the card). A
+    measurement: no gate."""
+    import torch
+
+    from e2e_multi_view_matching_tpu_torch.ops import sinkhorn as tsink
+    from e2e_multi_view_matching_tpu_torch.ops import sinkhorn_cuda
+
+    cases = []
+    for K, seeds, where in ((64, range(4), "cpu"), (128, range(4), "cpu"),
+                            (512, range(1), "cpu"), (1024, range(2), "cuda")):
+        for seed in seeds:
+            s, alpha = _sharp_pair_scores(K, seed, where)
+            s = s.cuda()
+            with torch.no_grad():
+                p64 = tsink.log_optimal_transport(s.double(), alpha, 100, impl="xla").exp()
+                runs = {"kernel": sinkhorn_cuda.log_optimal_transport_cuda(s, alpha, 100),
+                        "plain_twin": sinkhorn_cuda.log_optimal_transport_cuda(
+                            s.cpu(), alpha, 100).cuda(),
+                        "f32_log_domain": tsink.log_optimal_transport(s, alpha, 100,
+                                                                      impl="xla")}
+                far = {k: float(((z.double().exp() - p64).abs() / p64.clamp(min=1.0)).max())
+                       for k, z in runs.items()}
+            cases.append({"K": K, "seed": seed, "max_abs_score": float(s.abs().max()), **far})
+    worst = {k: max(c[k] for c in cases) for k in ("kernel", "plain_twin", "f32_log_domain")}
+    return {"vs_float64_log_domain_100_iterations": cases, "worst": worst}
+
+
 def _prob_err(z, z_ref):
     """Max |p - p_ref| / max(1, p_ref) over exp(log assignment): absolute on the
     match probabilities (<= 1), relative on the dustbin row and column, whose
@@ -968,8 +1189,11 @@ def kernel_phase():
 
     g = torch.Generator(device="cuda")
     g.manual_seed(0)
-    records = (_attention_records(g) + _cross_attn_train_records(g) + [_sinkhorn_record(g)]
-               + _sinkhorn_train_records(g))
+    train32 = _cross_attn_train_records(g)
+    records = (_attention_records(g) + train32 + _cross_attn_train_bf16_records(g, train32)
+               + [_sinkhorn_record(g)] + _sinkhorn_train_records(g))
+    sharp = _sinkhorn_sharp()
+    next(r for r in records if r["name"] == "sinkhorn_scaling")["sharp_scores"] = sharp
     for r in records:
         emit({"phase": "kernel", **r})
     return records
@@ -1463,7 +1687,22 @@ def _train_launches(n_steps, val_batches):
             "cross_attn_fwd_lse": 21 * n_steps, "cross_attn_bwd_dq": 21 * n_steps,
             "cross_attn_bwd_dkv": 21 * n_steps, "sinkhorn_log_stash": n_steps,
             "sinkhorn_bwd": n_steps, "sinkhorn_scaling": val_batches, "sinkhorn_log": 0,
-            "attn_fwd_bf16": 0, "cross_attn_fwd_bf16": 0}
+            "attn_fwd_bf16": 0, "cross_attn_fwd_bf16": 0, "cross_attn_fwd_lse_bf16": 0,
+            "cross_attn_bwd_dq_bf16": 0, "cross_attn_bwd_dkv_bf16": 0}
+
+
+def _train_bf16_launches(n_steps, val_batches):
+    """`_train_launches` in bfloat16: the bfloat16 kernels take the float32
+    attention kernels' places (per step 7 attn_fwd_bf16, 21 each of the LSE
+    forward, dq and dk/dv; per validation batch 7 attn_fwd_bf16 and 21
+    cross_attn_fwd_bf16), the Sinkhorn kernels stay float32."""
+    f32 = _train_launches(n_steps, val_batches)
+    return {**{k: 0 for k in f32}, "attn_fwd_bf16": f32["attn_fwd"],
+            "cross_attn_fwd_bf16": f32["cross_attn_fwd"],
+            "cross_attn_fwd_lse_bf16": f32["cross_attn_fwd_lse"],
+            "cross_attn_bwd_dq_bf16": f32["cross_attn_bwd_dq"],
+            "cross_attn_bwd_dkv_bf16": f32["cross_attn_bwd_dkv"],
+            **{k: f32[k] for k in ("sinkhorn_log_stash", "sinkhorn_bwd", "sinkhorn_scaling")}}
 
 
 def pose_path_phase(workdir, stage1_exp=None, n_steps=6):
@@ -1571,6 +1810,208 @@ def pose_path_phase(workdir, stage1_exp=None, n_steps=6):
           "seconds_with_setup_and_checkpoints": seconds, "data_seconds": data_s,
           "breakdown_one_step": breakdown, "first_step_grad_conditioned": grad_check})
     return launches
+
+
+def train_bf16_phase(workdir, n_steps=6, stage2_steps=3):
+    """bfloat16 training, `cli.train.train --compute_dtype bfloat16`, at the
+    full ScanNet 5-tuple training width (V=5, K=400, B=8, 480x480, 7 x (self
+    + 3 x cross), 100 Sinkhorn iterations) on the seeded plane scenes of
+    `train_path`: `n_steps` stage-1 steps on one repeated batch and one
+    validation batch, on the bfloat16 kernels and again on the plain
+    bfloat16 versions from the same seeded initial state; then
+    `stage2_steps` stage-2 steps (`--pose_loss --init_exp_name`, the conf MLP
+    in bfloat16) from the kernel run on seeded sphere-field scenes. Finite and
+    falling loss, exact launches a step (no float32 attention kernel), no
+    host sync inside a step, first-step gradients in the relative form
+    (`_bf16_grad_check`), steps/s and a per-stage breakdown. Returns the
+    kernel runs' launch counts, both stages together."""
+    import warnings
+
+    import torch
+
+    from e2e_multi_view_matching_tpu_torch.cli import train as tcli
+    from e2e_multi_view_matching_tpu_torch.data.synthetic import (
+        SphereFieldScene,
+        training_batch,
+    )
+    from e2e_multi_view_matching_tpu_torch.train import step as tstep
+    from e2e_multi_view_matching_tpu_torch.utils.config import to_device
+
+    B, V, H, W = 8, 5, 480, 480
+    rng = np.random.default_rng(0)
+    batch = training_batch(rng, B, V, H, W, f=577.0)
+    val_batch = training_batch(rng, B, V, H, W, f=577.0)
+    common = ["--checkpoint_dir", workdir, "--dataset", "scannet", "--tuple_size", str(V),
+              "--batch_size", str(B), "--i_train", "1", "--no_tensorboard",
+              "--compute_dtype", "bfloat16"]
+
+    def run(argv, steps, feed, val, tag):
+        opt = tcli.parse_args(common + argv)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_launches()
+        t0 = time.perf_counter()
+        with _LossLog() as losses:
+            state = tcli.train(opt, lambda epoch: iter([feed] * steps),
+                               lambda epoch: iter([val]))
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = _launches()
+        check(len(losses.train) == steps and len(losses.val) == 1,
+              f"train bf16 ({tag}): {len(losses.train)} losses logged, {len(losses.val)} "
+              f"validations")
+        check(all(math.isfinite(x) for x in losses.train + losses.val),
+              f"train bf16 ({tag}): non-finite loss {losses.train} {losses.val}")
+        check(all(p.dtype == torch.float32 for p in state.matcher.parameters()),
+              f"train bf16 ({tag}): parameters not float32")
+        loop_sps = (steps - 1) / (losses.step_end[-1] - losses.step_end[0])
+        return opt, state, counts, {
+            "steps_per_s": loop_sps, "tuples_per_s": loop_sps * B,
+            "train_losses": losses.train, "val_loss": losses.val[0],
+            "seconds_with_setup_and_checkpoints": dt,
+            "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+
+    stage1 = ["--n_epochs", "1", "--max_steps", str(n_steps)]
+    opt_k, state_k, launches, run_k = run(
+        stage1 + ["--attention_impl", "cuda", "--sinkhorn_impl", "cuda"], n_steps, batch,
+        val_batch, "kernels")
+    check(state_k.matcher.config.compute_dtype == "bfloat16", "train bf16: not a bfloat16 run")
+    expected = _train_bf16_launches(n_steps, val_batches=1)
+    check(launches == expected, f"train bf16: launches {launches}, expected {expected}")
+
+    # the step function alone, host syncs inside one step, the breakdown
+    sp, _ = tcli.build_models(opt_k)
+    sp.cuda().eval()
+    step = tstep.make_train_step(sp, opt_k)
+    dev = {k: to_device(v, "cuda") for k, v in batch.items()}
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    float(step(state_k, dev, gen)["train_loss"])
+    t0 = time.perf_counter()
+    for _ in range(3):
+        float(step(state_k, dev, gen)["train_loss"])
+    fn_sps = 3 / (time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            metrics = step(state_k, dev, gen)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    syncs = sorted({f"{Path(w.filename).name}:{w.lineno}" for w in caught
+                    if "synchronizing CUDA operation" in str(w.message)})
+    check(math.isfinite(float(metrics["train_loss"])), "train bf16: non-finite loss")
+    breakdown = _train_breakdown(sp, opt_k, state_k, dev, gen, groups=TRAIN_BF16_GROUPS)
+    del state_k, step, metrics
+    torch.cuda.empty_cache()
+    grad_check = _bf16_grad_check(tcli, opt_k, sp, dev, gen)
+    torch.cuda.empty_cache()
+
+    _, state_p, _, run_p = run(stage1 + ["--attention_impl", "xla", "--sinkhorn_impl", "xla"],
+                               n_steps, batch, val_batch, "plain")
+    del state_p
+    torch.cuda.empty_cache()
+
+    # stage 2 from the kernel run (its best checkpoint is of epoch 0)
+    batch2 = training_batch(np.random.default_rng(1), B, V, H, W, f=577.0,
+                            scene_cls=SphereFieldScene)
+    opt2, state2, launches2, run2 = run(
+        ["--pose_loss", "--init_exp_name", opt_k.exp_name, "--n_epochs", "2",
+         "--attention_impl", "cuda", "--sinkhorn_impl", "cuda"], stage2_steps, batch2, batch2,
+        "stage 2")
+    check(hasattr(state2.matcher, "conf_mlp") and state2.optimizer.skip_nonfinite,
+          "train bf16: stage 2 is not the stage-2 configuration")
+    expected2 = _train_bf16_launches(stage2_steps, val_batches=1)
+    check(launches2 == expected2, f"train bf16 (stage 2): launches {launches2}, "
+          f"expected {expected2}")
+    del state2
+    torch.cuda.empty_cache()
+    emit({"phase": "train_bf16",
+          "config": {"V": V, "K": 400, "B": B, "image": [H, W], "gnn": "7x(self+3xcross)",
+                     "sinkhorn_iters": 100, "compute_dtype": "bfloat16", "steps": n_steps,
+                     "stage2_steps": stage2_steps, "lr": opt_k.lr},
+          "steps_per_s": run_k["steps_per_s"], "tuples_per_s": run_k["tuples_per_s"],
+          "plain_steps_per_s": run_p["steps_per_s"], "step_fn_steps_per_s": fn_sps,
+          "stage2_steps_per_s": run2["steps_per_s"],
+          "runs": {"kernels": run_k, "plain": run_p, "stage2_kernels": run2},
+          "launches": launches, "launches_stage2": launches2,
+          "launches_per_step": {k: v / n_steps for k, v in launches.items()
+                                if v and k not in ("cross_attn_fwd_bf16", "sinkhorn_scaling")},
+          "host_syncs_in_step": syncs, "first_step_grads": grad_check,
+          "breakdown_one_step": breakdown})
+    for name, r in (("kernels", run_k), ("plain", run_p)):
+        check(r["train_losses"][-1] < r["train_losses"][0],
+              f"train bf16 ({name}): loss did not fall on the repeated batch: "
+              f"{r['train_losses']}")
+    check(not syncs, f"train bf16: host syncs inside one train step at {syncs}")
+    return {k: launches[k] + launches2[k] for k in launches}
+
+
+def _bf16_grad_check(tcli, opt, sp, dev, gen, n=2):
+    """First-step gradients of `n` tuples from the seeded initial weights on
+    the bfloat16 SuperPoint's outputs and one set of GT matches: the float32
+    kernels (the reference of the relative form), the bfloat16 kernels and
+    the plain bfloat16 versions, at the initial weights and at the
+    conditioned point (`CONDITIONED_RESCALE`). The bfloat16 kernel run's
+    distance to the float32 kernels' gradient, on the worst and the median
+    leaf, is held to BF16_GRAD_FACTOR x the plain bfloat16 run's +
+    BF16_GRAD_SLACK of the largest float32 leaf norm."""
+    import copy
+
+    import torch
+
+    from e2e_multi_view_matching_tpu_torch.data.gt_matches import gt_matches_all_pairs
+    from e2e_multi_view_matching_tpu_torch.train import step as tstep
+    from e2e_multi_view_matching_tpu_torch.train.losses import combine_losses, matcher_losses
+
+    sub = {k: v[:n] for k, v in dev.items()}
+    V, H, W = sub["images"].shape[1:4]
+    kpts, scores, descs = tstep.superpoint_outputs(sp, sub["images"], gen)
+    gi, gw = gt_matches_all_pairs(kpts, sub["intr"], sub["poses"], sub["depths"],
+                                  opt.match_reproj_err, opt.unmatch_reproj_err)
+    size = torch.empty((n, V, 2), device="cuda")
+    size[..., 0], size[..., 1] = H, W
+
+    def first_grads(att, dtype, rescale):
+        o = copy.copy(opt)
+        o.attention_impl, o.sinkhorn_impl, o.compute_dtype = att, att, dtype
+        matcher = tcli.build_models(o)[1].cuda()
+        with torch.no_grad():
+            for name, p in matcher.named_parameters():
+                for key, factor in (rescale or {}).items():
+                    if key in name:
+                        p.mul_(factor)
+        out = matcher(kpts, scores, descs, size, train=True, full_output=False)
+        losses = matcher_losses(out, gi, gw, kpts, None, None, pose_loss=False)
+        total, _ = combine_losses(losses, V * (V - 1) // 2, 0.0, 0.0, 0.0)
+        grads = torch.autograd.grad(total, list(matcher.parameters()))
+        check(all(g.dtype == torch.float32 for g in grads), "train bf16: gradients not float32")
+        return [g.double() for g in grads], float(total.detach())
+
+    out = {"tuples": n, "factor": BF16_GRAD_FACTOR, "slack": BF16_GRAD_SLACK}
+    for point, rescale in (("initial", None), ("conditioned", CONDITIONED_RESCALE)):
+        f32, l32 = first_grads("cuda", "float32", rescale)
+        k16, lk = first_grads("cuda", "bfloat16", rescale)
+        p16, lp = first_grads("xla", "bfloat16", rescale)
+        top = max(float(g.norm()) for g in f32)
+        rec = {"top_leaf_norm_f32": top, "loss_f32_kernels": l32, "loss_bf16_kernels": lk,
+               "loss_bf16_plain": lp, "bf16_kernels_vs_f32_kernels": _leaf_dist(k16, f32, top),
+               "bf16_plain_vs_f32_kernels": _leaf_dist(p16, f32, top),
+               "bf16_kernels_vs_bf16_plain": _leaf_dist(k16, p16, top)}
+        out[point] = rec
+        for which in ("worst", "median"):
+            limit = (BF16_GRAD_FACTOR * rec["bf16_plain_vs_f32_kernels"][which]
+                     + BF16_GRAD_SLACK)
+            got = rec["bf16_kernels_vs_f32_kernels"][which]
+            check(top > 0 and got <= limit,
+                  f"train bf16 ({point} point): the bfloat16 kernel run's first-step "
+                  f"gradients are {got} of the largest leaf norm from the float32 kernels' on "
+                  f"the {which} leaf (limit {limit}: {BF16_GRAD_FACTOR} x the plain bfloat16 "
+                  f"run's + {BF16_GRAD_SLACK})")
+        del f32, k16, p16
+        torch.cuda.empty_cache()
+    return out
 
 
 def _pose_breakdown(sp, opt, state, dev, gen, reps=2):
@@ -1681,10 +2122,6 @@ def _pose_grad_check(tcli, opt, sp, dev, gen, n=2):
         return ([g.double() for g in grads], out["matches0"],
                 {k: float(v.detach()) for k, v in losses.items()})
 
-    def dist(a, b, top):
-        d = sorted(float((x - y).norm()) / top for x, y in zip(a, b))
-        return {"worst": d[-1], "median": d[len(d) // 2]}
-
     ref, m_ref, l_ref = first_grads("xla", "xla", torch.float64)
     plain, m_plain, l_plain = first_grads("xla", "xla", torch.float32)
     kernels, m_k, l_k = first_grads("cuda", "cuda", torch.float32)
@@ -1694,9 +2131,9 @@ def _pose_grad_check(tcli, opt, sp, dev, gen, n=2):
            "matches_f64": int((m_ref >= 0).sum()),
            "matches0_agreement_kernels_plain": float((m_k == m_plain).float().mean()),
            "matches0_agreement_plain_f64": float((m_plain == m_ref).float().mean()),
-           "top_leaf_norm_f64": top, "plain_f32_vs_f64": dist(plain, ref, top),
-           "kernels_f32_vs_f64": dist(kernels, ref, top),
-           "kernels_vs_plain_f32": dist(kernels, plain, top)}
+           "top_leaf_norm_f64": top, "plain_f32_vs_f64": _leaf_dist(plain, ref, top),
+           "kernels_f32_vs_f64": _leaf_dist(kernels, ref, top),
+           "kernels_vs_plain_f32": _leaf_dist(kernels, plain, top)}
     limit = max(TRAIN_GRAD_CONDITIONED_TOL, TRAIN_GRAD_F64_FACTOR
                 * out["plain_f32_vs_f64"]["worst"] + TRAIN_GRAD_CONDITIONED_TOL)
     out["tol"] = limit
@@ -1706,6 +2143,13 @@ def _pose_grad_check(tcli, opt, sp, dev, gen, n=2):
     check(worst <= limit, f"pose path: kernel and plain first-step gradients differ by {worst} "
           f"of the largest leaf norm on the worst leaf (limit {limit})")
     return out
+
+
+def _leaf_dist(a, b, top):
+    """Per-leaf distance ||a - b|| / top of two gradient lists: the worst and
+    the median leaf."""
+    d = sorted(float((x - y).norm()) / top for x, y in zip(a, b))
+    return {"worst": d[-1], "median": d[len(d) // 2]}
 
 
 def _grad_reference(tcli, tstep, opt, sp, dev, gen, n=2):
@@ -1751,10 +2195,6 @@ def _grad_reference(tcli, tstep, opt, sp, dev, gen, n=2):
         grads = torch.autograd.grad(total, list(matcher.parameters()))
         return [g.double() for g in grads], peak
 
-    def dist(a, b, top):
-        d = sorted(float((x - y).norm()) / top for x, y in zip(a, b))
-        return {"worst": d[-1], "median": d[len(d) // 2]}
-
     ref, peak = first_grads("xla", "xla", torch.float64)
     top = max(float(g.norm()) for g in ref)
     f32 = {f"attention_{att}_sinkhorn_{sink}": first_grads(att, sink, torch.float32)[0]
@@ -1763,8 +2203,8 @@ def _grad_reference(tcli, tstep, opt, sp, dev, gen, n=2):
     out = {"tuples": n, "top_leaf_norm_f64": top, "max_abs_log_p_f64": peak,
            "randomly_filled_slots": int((scores == 0).sum()), "slots": scores.numel(),
            "gt_matches": int((gi[:, :, 0, :-1] >= 0).sum()),
-           "f32_vs_f64": {k: dist(g, ref, top) for k, g in f32.items()},
-           "kernels_vs_plain_f32": dist(kernels, plain, top)}
+           "f32_vs_f64": {k: _leaf_dist(g, ref, top) for k, g in f32.items()},
+           "kernels_vs_plain_f32": _leaf_dist(kernels, plain, top)}
     del f32, ref
     limit = TRAIN_GRAD_F64_FACTOR * out["f32_vs_f64"]["attention_xla_sinkhorn_xla"]["worst"] + 1e-3
     worst_k = out["f32_vs_f64"]["attention_cuda_sinkhorn_cuda"]["worst"]
@@ -1778,9 +2218,9 @@ def _grad_reference(tcli, tstep, opt, sp, dev, gen, n=2):
     top_c = max(float(g.norm()) for g in ref_c)
     out["conditioned"] = {"rescale": CONDITIONED_RESCALE, "max_abs_log_p_f64": peak_c,
                           "top_leaf_norm_f64": top_c, "tol": TRAIN_GRAD_CONDITIONED_TOL,
-                          "plain_f32_vs_f64": dist(plain_c, ref_c, top_c),
-                          "kernels_f32_vs_f64": dist(kernels_c, ref_c, top_c),
-                          "kernels_vs_plain_f32": dist(kernels_c, plain_c, top_c)}
+                          "plain_f32_vs_f64": _leaf_dist(plain_c, ref_c, top_c),
+                          "kernels_f32_vs_f64": _leaf_dist(kernels_c, ref_c, top_c),
+                          "kernels_vs_plain_f32": _leaf_dist(kernels_c, plain_c, top_c)}
     worst_c = out["conditioned"]["kernels_vs_plain_f32"]["worst"]
     check(top_c > 0 and worst_c <= TRAIN_GRAD_CONDITIONED_TOL,
           f"train path: at the conditioned point the kernel and plain gradients differ by "
@@ -1788,7 +2228,7 @@ def _grad_reference(tcli, tstep, opt, sp, dev, gen, n=2):
     return out
 
 
-def _train_breakdown(sp, opt, state, dev, gen, reps=2):
+def _train_breakdown(sp, opt, state, dev, gen, reps=2, groups=None):
     """Where one train step's time goes: host clock around synchronized
     stages, and device time by kernel group under torch.profiler."""
     import torch
@@ -1819,7 +2259,7 @@ def _train_breakdown(sp, opt, state, dev, gen, reps=2):
     bwd_ms = (time.perf_counter() - t0) * 1e3
     opt_ms, _ = wall(lambda: state.optimizer.step(grads))
     step = tstep.make_train_step(sp, opt)
-    busy = _device_busy(lambda: step(state, dev, gen), groups=TRAIN_GROUPS)
+    busy = _device_busy(lambda: step(state, dev, gen), groups=groups or TRAIN_GROUPS)
     return {"superpoint_ms": sp_ms, "gt_matches_ms": gt_ms,
             "forward_ms_gt_matcher_loss": fwd_ms, "matcher_forward_ms": fwd_ms - gt_ms,
             "backward_ms": bwd_ms, "optimizer_ms": opt_ms, **busy}
@@ -1839,6 +2279,15 @@ TRAIN_GROUPS = {
     "sinkhorn_bwd": ("bwd_cluster_kernel",),
     "attention_fwd_kernels": ("attn_fwd_kernel",),
     "attention_bwd_kernels": ("cross_attn_bwd",)}
+# a bfloat16 train step ("::attn_fwd_bf16" names the self layers' kernel only)
+TRAIN_BF16_GROUPS = {
+    "sinkhorn_fwd": ("log_cluster_kernel",),
+    "sinkhorn_bwd": ("bwd_cluster_kernel",),
+    "self_attn_fwd_bf16": ("::attn_fwd_bf16_kernel",),
+    "cross_attn_fwd_lse_bf16": ("cross_attn_fwd_bf16_kernel",),
+    "cross_attn_bwd_bf16": ("cross_attn_bwd_dq_bf16", "cross_attn_bwd_dkv_bf16"),
+    "float32_attention": ("attn_fwd_kernel<", "cross_attn_bwd_dq_kernel<",
+                          "cross_attn_bwd_dkv_kernel<")}
 
 
 def breakdown_phase(sp, matcher, images, intr, size, reps=3, phase="breakdown",
@@ -2197,6 +2646,23 @@ def cli_phase(workdir, card, n_steps=2, hd_steps=20):
     check(set(bf16_metrics) == set(auc_keys)
           and all(math.isfinite(bf16_metrics[k]) for k in auc_keys),
           f"cli: bfloat16 eval metrics {bf16_metrics}")
+
+    # bfloat16 training through the command line: stage 1, then stage 2 from it
+    common16 = common + ["--compute_dtype", "bfloat16", "--no_tensorboard"]
+    text6, wall6 = _run_cli("train", common16 + ["--n_epochs", "1", "--max_steps", "1"],
+                            f"{workdir}/cli_train_bf16.log")
+    exp6, steps6, vals6, _ = _train_log(text6, "stage 1, bfloat16")
+    text7, wall7 = _run_cli("train", common16 + ["--pose_loss", "--init_exp_name", exp6,
+                                                 "--n_epochs", "2", "--max_steps", "2"],
+                            f"{workdir}/cli_train2_bf16.log")
+    exp7, steps7, vals7, _ = _train_log(text7, "stage 2, bfloat16")
+    with open(f"{ckpt}/{exp7}/cfg.json") as f:
+        cfg7 = json.load(f)
+    emit({"phase": "cli_train_bf16", "card": card,
+          "stage1": {"exp": exp6, "wall_seconds": wall6, "steps": steps6, "val_losses": vals6},
+          "stage2": {"exp": exp7, "wall_seconds": wall7, "steps": steps7, "val_losses": vals7}})
+    check(len(steps6) == 1 and len(steps7) == 1 and cfg7["compute_dtype"] == "bfloat16"
+          and cfg7["pose_loss"], f"cli: bfloat16 training logged {steps6} / {steps7}")
     return launches
 
 
@@ -2612,8 +3078,8 @@ def pairs_phase(workdir, card, n_pairs=16):
     return total
 
 
-PHASES = ("kernel", "reference", "main_path", "bf16", "train_path", "pose_path", "cli",
-          "pairs")
+PHASES = ("kernel", "reference", "main_path", "bf16", "train_path", "pose_path",
+          "train_bf16", "cli", "pairs")
 
 
 def main(argv=None):
@@ -2677,6 +3143,10 @@ def main(argv=None):
                 by_path["pose"] = pose_path_phase(workdir, stage1_exp)
                 torch.cuda.empty_cache()
             lap("pose_path")
+            if "train_bf16" in phases:
+                by_path["train_bf16"] = train_bf16_phase(workdir)
+                torch.cuda.empty_cache()
+            lap("train_bf16")
             if "cli" in phases:
                 by_path["cli_eval"] = cli_phase(workdir, card)
                 torch.cuda.empty_cache()

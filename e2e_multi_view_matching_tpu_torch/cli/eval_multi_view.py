@@ -17,9 +17,9 @@ them into AUC@5/10/20 JSON. Chunks of `eval_scan x eval_batch` tuples are
 queued one ahead: the next chunk's device work is enqueued before the current
 chunk's extrinsics are copied to the host, the only sync of a chunk.
 
-Not ported yet: `--data_parallel` (ROADMAP Queue 1 item 3) and the RANSAC
-init modes of the multi-view pipeline (`--init_mode ransac|ransac_ba`,
-Queue 1 item 4), though the host RANSAC itself (`geom/ransac.py`) is there
+Not ported yet: `--data_parallel` above 1 (ROADMAP Queue 1, the distributed
+modes) and the RANSAC init modes of the multi-view pipeline (`--init_mode
+ransac|ransac_ba`, Queue 1), though the host RANSAC itself (`geom/ransac.py`) is there
 for `cli/eval_pairs.py`.
 """
 
@@ -79,6 +79,9 @@ def parse_args(argv=None):
     parser.add_argument("--no_pipeline", action="store_true",
                         help="do not queue the next chunk before fetching the "
                              "current one")
+    parser.add_argument("--data_parallel", type=int, default=1,
+                        help="devices a chunk is sharded over (only 1 until "
+                             "parallel/mesh.py is ported)")
     parser.add_argument("--init_mode", type=str, default="w8pt_ba",
                         choices=["w8pt_ba"],
                         help="per-pair relative-pose initialization")
@@ -89,7 +92,11 @@ def parse_args(argv=None):
                         help="permit running with freshly initialized SuperPoint "
                              "weights when superpoint.ckpt is absent (meaningless "
                              "AUC; debugging only)")
-    return parser.parse_args(argv)
+    opt = parser.parse_args(argv)
+    if opt.data_parallel != 1:
+        parser.error("--data_parallel above 1 waits for the port of parallel/mesh.py "
+                     "(ROADMAP Queue 1, the distributed modes)")
+    return opt
 
 
 def write_result(pose_errors, file):

@@ -29,7 +29,8 @@ pair, pads every chunk to a full grid of `eval_scan` sub-chunks of
 `eval_batch` pairs, and queues one chunk ahead of the one whose results it
 copies back (one packed copy a chunk).
 
-Not ported yet: `--data_parallel` above 1 (ROADMAP Queue 1 item 3).
+Not ported yet: `--data_parallel` above 1 (ROADMAP Queue 1, the distributed
+modes).
 """
 
 import argparse
@@ -105,7 +106,7 @@ def parse_args(argv=None):
     opt = parser.parse_args(argv)
     if opt.data_parallel != 1:
         parser.error("--data_parallel above 1 waits for the port of parallel/mesh.py "
-                     "(ROADMAP Queue 1 item 3)")
+                     "(ROADMAP Queue 1, the distributed modes)")
     return opt
 
 

@@ -124,10 +124,6 @@ def parse_args(argv=None):
     if opt.model_parallel != 1 or opt.multi_host:
         parser.error("--model_parallel and --multi_host wait for the ports of "
                      "parallel/mesh.py and mvba/distributed.py")
-    if opt.compute_dtype != "float32":
-        parser.error("--compute_dtype bfloat16 trains on the bfloat16 cross-attention "
-                     "training kernels, the next slice of the port; it evaluates "
-                     "(cli.eval_multi_view, cli.eval_pairs) already")
     return opt
 
 

@@ -19,14 +19,17 @@ exactly as flax does (biased variance as E[x^2] - E[x]^2, also stored;
 momentum 0.9 on the old value). It is a call argument, as in the JAX package,
 not `nn.Module.train()`.
 
-`compute_dtype="bfloat16"` (eval only; training in bfloat16 is the next slice
-of the port) rounds where the JAX package's flax modules round: parameters
-stay float32 and are cast per call; a Dense casts input, kernel and bias to
-bfloat16, takes the product with a bfloat16 result and adds the bias in
-bfloat16; BatchNorm and ReLU run in float32 on the upcast input; the keypoint
-encoder's input, the descriptors, the residual adds and the attention run in
-bfloat16; the pair scores are float32 products of the bfloat16 descriptors,
-and the Sinkhorn and the confidence head's sigmoid are float32.
+`compute_dtype="bfloat16"` (eval and training) rounds where the JAX package's
+flax modules round: parameters stay float32 and are cast per call; a Dense
+casts input, kernel and bias to bfloat16, takes the product with a bfloat16
+result and adds the bias in bfloat16; BatchNorm and ReLU run in float32 on the
+upcast input (in training the batch statistics too, as flax's
+`BatchNorm(dtype=float32)` takes them); the keypoint encoder's input, the
+descriptors, the residual adds and the attention run in bfloat16; the pair
+scores are float32 products of the bfloat16 descriptors, and the Sinkhorn and
+the confidence head's sigmoid are float32. Under autograd the gradients take
+the same roundings backwards (a Dense's two, the casts'), and those of the
+float32 parameters come out float32.
 """
 
 from dataclasses import dataclass, field
@@ -41,10 +44,7 @@ from e2e_multi_view_matching_tpu_torch.ops.attention import (
     cross_view_mask,
     multi_head_attention,
 )
-from e2e_multi_view_matching_tpu_torch.ops.attention_cuda import (
-    BF16_TRAINING,
-    fused_view_attention,
-)
+from e2e_multi_view_matching_tpu_torch.ops.attention_cuda import fused_view_attention
 from e2e_multi_view_matching_tpu_torch.ops.sinkhorn import (
     extract_matches,
     log_optimal_transport,
@@ -199,8 +199,6 @@ class MultiViewMatcher(nn.Module):
         """
         cfg = self.config
         cdtype = COMPUTE_DTYPES[cfg.compute_dtype]
-        if train and cdtype == torch.bfloat16:
-            raise NotImplementedError(f"the matcher trains in float32 only: {BF16_TRAINING}")
         B, V, K, D = descs.shape
         size = image_size.to(kpts.dtype)
         center = torch.stack([size[..., 1], size[..., 0]], dim=-1)[:, :, None, :] / 2.0

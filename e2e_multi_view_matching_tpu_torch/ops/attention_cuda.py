@@ -6,20 +6,29 @@ masked kernel, which builds the `full`/`self`/`cross` mask from token indices.
 Under grad the cross layers carry the flash backward of the JAX custom VJP: the
 forward also stores the per-row LSE, and two kernels rebuild the probabilities
 from it for dq and for dk/dv; self and full layers keep the recompute VJP
-through the plain version, as in JAX. A CUDA tensor launches a kernel or
-raises; a CPU tensor takes the plain versions (the same autograd wiring under
-grad).
+through `multi_head_attention` with the layer's mask, as in JAX (`_bwd`
+takes the VJP of `_ref_attention`). A CUDA tensor launches a kernel or raises;
+a CPU tensor takes the plain versions (the same autograd wiring under grad).
 
 Kernels (`ops/csrc/attention_cuda.cu`, float32): `attn_fwd` replaces
 `_attn_kernel`, `cross_attn_fwd` `_cross_attn_kernel`, `cross_attn_fwd_lse`
 `_cross_attn_lse_kernel`, `cross_attn_bwd_dq` `_cross_attn_bwd_dq_kernel`,
-`cross_attn_bwd_dkv` `_cross_attn_bwd_dkv_kernel`. Given bfloat16 q, k, v,
-`attn_fwd` and `cross_attn_fwd` launch the tensor-core kernels of
-`ops/csrc/attention_bf16_cuda.cu` (counted as `attn_fwd_bf16` and
-`cross_attn_fwd_bf16`), the Pallas kernels' bfloat16 instantiations: scores,
-softmax and P V in float32, the output rounded to bfloat16 once
-(`plain_view_attention` on bfloat16 inputs is their plain version). The
-training kernels take float32 only: bfloat16 under grad raises.
+`cross_attn_bwd_dkv` `_cross_attn_bwd_dkv_kernel`. Given bfloat16 q, k, v (and
+dO), each wrapper launches its tensor-core kernel of
+`ops/csrc/attention_bf16_cuda.cu` instead, counted under the kernel's name
+with `_bf16` appended: the Pallas kernels' bfloat16 instantiations. Forward:
+scores, softmax and P V in float32, the output rounded to bfloat16 once, the
+LSE in float32 (`plain_view_attention` and `cross_attn_fwd_lse_plain` on
+bfloat16 inputs are their plain versions). Backward: float32 scores, p, dp and
+ds from the float32 LSE and dvec, p and ds rounded to bfloat16 where the
+Pallas bodies round them, each gradient rounded to bfloat16 once
+(`cross_attn_bwd_plain` on bfloat16 inputs). The LSE and dvec are float32 in
+every mode.
+
+In bfloat16 the self and full layers' VJP is that of bfloat16
+`multi_head_attention` (the probabilities rounded to bfloat16 before P V),
+not of the forward kernel's arithmetic (P kept in float32): the JAX package
+pairs the two the same way. In float32 the two are one function.
 """
 
 import ctypes
@@ -49,20 +58,24 @@ _SIGNATURES = {
 _BF16_SIGNATURES = {
     "attn_fwd_bf16": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P]),
     "cross_attn_fwd_bf16": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P]),
+    "cross_attn_fwd_lse_bf16": (_I, [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P]),
+    "cross_attn_bwd_dq_bf16": (_I, [_P] * 7 + [_I] * 5 + [_F, _P]),
+    "cross_attn_bwd_dkv_bf16": (_I, [_P] * 8 + [_I] * 5 + [_F, _P]),
     "attn_bf16_kernel_info": (_I, [_I, _I, _P]),
 }
 _KERNELS = {("attn_fwd", "full"): 0, ("attn_fwd", "self"): 1, ("attn_fwd", "cross"): 2,
             ("cross_attn_fwd", "cross"): 3, ("cross_attn_fwd_lse", "cross"): 4,
             ("cross_attn_bwd_dq", "cross"): 5, ("cross_attn_bwd_dkv", "cross"): 6,
             ("attn_fwd_bf16", "full"): 0, ("attn_fwd_bf16", "self"): 1,
-            ("attn_fwd_bf16", "cross"): 2, ("cross_attn_fwd_bf16", "cross"): 3}
-BF16_TRAINING = ("bfloat16 training (the bfloat16 cross-attention training kernels and "
-                 "the self layers' bfloat16 VJP) is the next slice of the port")
+            ("attn_fwd_bf16", "cross"): 2, ("cross_attn_fwd_bf16", "cross"): 3,
+            ("cross_attn_fwd_lse_bf16", "cross"): 4, ("cross_attn_bwd_dq_bf16", "cross"): 5,
+            ("cross_attn_bwd_dkv_bf16", "cross"): 6}
 
 # kernel launches since the last reset, one per wrapper call that launched
 launches = {"attn_fwd": 0, "cross_attn_fwd": 0, "cross_attn_fwd_lse": 0,
             "cross_attn_bwd_dq": 0, "cross_attn_bwd_dkv": 0, "attn_fwd_bf16": 0,
-            "cross_attn_fwd_bf16": 0}
+            "cross_attn_fwd_bf16": 0, "cross_attn_fwd_lse_bf16": 0,
+            "cross_attn_bwd_dq_bf16": 0, "cross_attn_bwd_dkv_bf16": 0}
 
 
 def _lib():
@@ -141,15 +154,19 @@ def cross_attn_fwd(q, k, v, n_views, n_kpts, scale):
 
 
 def cross_attn_fwd_lse(q, k, v, n_views, n_kpts, scale):
-    """`cross_attn_fwd` that also returns the per-row LSE (BH, S) of its softmax."""
-    _check(q, k, v)
+    """`cross_attn_fwd` that also returns the per-row LSE (BH, S) of its softmax,
+    float32 in both modes (bfloat16 q, k, v: `cross_attn_fwd_lse_bf16`)."""
+    _check(q, k, v, dtypes=_FWD_DTYPES)
     _check_cross(q, n_views, n_kpts)
     BH, S, dh = q.shape
     out = torch.empty_like(q)
-    lse = torch.empty((BH, S), dtype=q.dtype, device=q.device)
-    _launched("cross_attn_fwd_lse", _lib().cross_attn_fwd_lse(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(), BH, S,
-        dh, n_views, n_kpts, scale, _stream(q)))
+    lse = torch.empty((BH, S), dtype=torch.float32, device=q.device)
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(), BH, S,
+            dh, n_views, n_kpts, scale, _stream(q))
+    if q.dtype == torch.bfloat16:
+        _launched("cross_attn_fwd_lse_bf16", _lib_bf16().cross_attn_fwd_lse_bf16(*args))
+    else:
+        _launched("cross_attn_fwd_lse", _lib().cross_attn_fwd_lse(*args))
     return out, lse
 
 
@@ -170,7 +187,7 @@ def kernel_info(name, dh, mode="cross"):
 
 
 def _check_bwd(q, k, v, do, lse, dvec, n_views, n_kpts):
-    _check(q, k, v, do)
+    _check(q, k, v, do, dtypes=_FWD_DTYPES)
     for x in (lse, dvec):
         if not x.is_cuda or x.dtype != torch.float32 or not x.is_contiguous():
             raise ValueError("lse and dvec must be contiguous float32 CUDA tensors")
@@ -180,26 +197,42 @@ def _check_bwd(q, k, v, do, lse, dvec, n_views, n_kpts):
 
 
 def cross_attn_bwd_dq(q, k, v, do, lse, dvec, n_views, n_kpts, scale):
-    """dq of the cross-view attention from the stashed LSE and dvec = rowsum(dO * O)."""
+    """dq of the cross-view attention from the stashed LSE and dvec = rowsum(dO * O)
+    (float32 both); q, k, v, dO float32 or bfloat16 (`cross_attn_bwd_dq_bf16`)."""
     _check_bwd(q, k, v, do, lse, dvec, n_views, n_kpts)
     BH, S, dh = q.shape
     dq = torch.empty_like(q)
-    _launched("cross_attn_bwd_dq", _lib().cross_attn_bwd_dq(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-        dvec.data_ptr(), dq.data_ptr(), BH, S, dh, n_views, n_kpts, scale, _stream(q)))
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+            dvec.data_ptr(), dq.data_ptr(), BH, S, dh, n_views, n_kpts, scale, _stream(q))
+    if q.dtype == torch.bfloat16:
+        _launched("cross_attn_bwd_dq_bf16", _lib_bf16().cross_attn_bwd_dq_bf16(*args))
+    else:
+        _launched("cross_attn_bwd_dq", _lib().cross_attn_bwd_dq(*args))
     return dq
 
 
 def cross_attn_bwd_dkv(q, k, v, do, lse, dvec, n_views, n_kpts, scale):
-    """(dk, dv) of the cross-view attention from the stashed LSE and dvec."""
+    """(dk, dv) of the cross-view attention from the stashed LSE and dvec; q, k,
+    v, dO float32 or bfloat16 (`cross_attn_bwd_dkv_bf16`)."""
     _check_bwd(q, k, v, do, lse, dvec, n_views, n_kpts)
     BH, S, dh = q.shape
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    _launched("cross_attn_bwd_dkv", _lib().cross_attn_bwd_dkv(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-        dvec.data_ptr(), dk.data_ptr(), dv.data_ptr(), BH, S, dh, n_views, n_kpts, scale,
-        _stream(q)))
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+            dvec.data_ptr(), dk.data_ptr(), dv.data_ptr(), BH, S, dh, n_views, n_kpts, scale,
+            _stream(q))
+    if q.dtype == torch.bfloat16:
+        _launched("cross_attn_bwd_dkv_bf16", _lib_bf16().cross_attn_bwd_dkv_bf16(*args))
+    else:
+        _launched("cross_attn_bwd_dkv", _lib().cross_attn_bwd_dkv(*args))
     return dk, dv
+
+
+def _mode_mask(n_views, n_kpts, mode, device):
+    """The (S, S) mask of `mode` (None for "full")."""
+    if mode == "full":
+        return None
+    fn = cross_view_mask if mode == "cross" else self_view_mask
+    return fn(n_views, n_kpts, device=device)
 
 
 def plain_view_attention(q, k, v, num_heads, n_views, n_kpts, mode):
@@ -209,11 +242,7 @@ def plain_view_attention(q, k, v, num_heads, n_views, n_kpts, mode):
     upcast to float32, the float32 attention (P V with P in float32), the
     output rounded to bfloat16 once (not `multi_head_attention`'s bfloat16
     semantics, which round the probabilities to bfloat16 before P V)."""
-    if mode == "full":
-        mask = None
-    else:
-        fn = cross_view_mask if mode == "cross" else self_view_mask
-        mask = fn(n_views, n_kpts, device=q.device)
+    mask = _mode_mask(n_views, n_kpts, mode, q.device)
     if q.dtype == torch.bfloat16:
         out = multi_head_attention(q.float(), k.float(), v.float(), num_heads, mask=mask)
         return out.to(torch.bfloat16)
@@ -231,24 +260,49 @@ def bf16_ulp(x):
 # carries up to ~2^-20 of its absolute scale (sum p |v| / l) where IEEE float32
 # sums carry ~2^-24 (measured on an H100 at 1600 keys, |v| ~ 2).
 BF16_SUM_TOL = 2.0 ** -18
+# The backward kernels round p and ds to bfloat16 before their products, as
+# the Pallas bodies do, but form them from dp = dO v^T, s = q k^T and exp in
+# another order and with other rounding than the plain version: their float32
+# p and ds differ from the plain version's by a few float32 ulps, so where one
+# lies near the midpoint of two bfloat16 values the two round it to
+# neighbours one bfloat16 ulp apart. Each such flip moves the sum it feeds by
+# ulp(ds_ij) |k_j| (dq), ulp(ds_ij) |q_i| (dk) or ulp(p_ij) |dO_i| (dv). A
+# kernel is held to one bfloat16 ulp of the plain version's output + 1e-6 +
+# BF16_SUM_TOL of the sum's absolute scale + the flips of every term at once:
+#   dq_i: scale sum_j ulp(ds_ij) |k_j|,  dk_j: scale sum_i ulp(ds_ij) |q_i|,
+#   dv_j: sum_i ulp(p_ij) |dO_i|
+# (`cross_attn_bwd_bf16_slack`). Every term at once is the bound, not the
+# expectation: a flip needs the two float32 values on either side of a
+# midpoint, which a few ulps of difference make rare.
 
 
-def bf16_ulp_error(out, ref, abs_scale=None):
+def bf16_ulp_error(out, ref, abs_scale=None, flips=None):
     """max |out - ref| / (one bfloat16 ulp of ref + 1e-6 [+ BF16_SUM_TOL *
-    abs_scale]): the one-ulp gate holds at <= 1. The 1e-6 covers outputs that
-    cancel to near 0, where the float32 sums' rounding exceeds their ulp;
-    `abs_scale` (the attention of |v|, sum p |v| / l per output) widens it to
-    the kernels' tensor-core sums."""
+    abs_scale] [+ flips]): the one-ulp gate holds at <= 1. The 1e-6 covers
+    outputs that cancel to near 0, where the float32 sums' rounding exceeds
+    their ulp; `abs_scale` (the attention of |v|, sum p |v| / l per output; in
+    the backward, the sum of the absolute products) widens it to the kernels'
+    tensor-core sums; `flips` (the backward: the sum of one bfloat16 ulp of
+    every rounded p or ds times its partner) to the roundings that may land
+    on a neighbour (`cross_attn_bwd_bf16_slack`)."""
     d = (out.float() - ref.float()).abs()
     slack = bf16_ulp(ref) + 1e-6
     if abs_scale is not None:
         slack = slack + BF16_SUM_TOL * abs_scale.float()
+    if flips is not None:
+        slack = slack + flips.float()
     return float((d / slack).max())
 
 
 def cross_attn_fwd_lse_plain(q, k, v, n_views, n_kpts, scale):
     """Plain version of `cross_attn_fwd_lse` on split heads: one-shot softmax
-    under the cross mask (-1e9 fill, +1e-9 denominator) -> (o, lse (BH, S))."""
+    under the cross mask (-1e9 fill, +1e-9 denominator) -> (o, lse (BH, S)).
+    bfloat16 q, k, v are upcast, o is rounded to bfloat16 once, the LSE stays
+    float32."""
+    if q.dtype == torch.bfloat16:
+        o, lse = cross_attn_fwd_lse_plain(q.float(), k.float(), v.float(), n_views, n_kpts,
+                                          scale)
+        return o.to(torch.bfloat16), lse
     s = torch.einsum("bqd,bkd->bqk", q, k) * scale
     s = s.masked_fill(~cross_view_mask(n_views, n_kpts, device=q.device), _NEG_INF)
     m = s.amax(dim=-1, keepdim=True)
@@ -257,14 +311,43 @@ def cross_attn_fwd_lse_plain(q, k, v, n_views, n_kpts, scale):
     return (p @ v) / l, (m + torch.log(l))[..., 0]
 
 
-def cross_attn_bwd_plain(q, k, v, do, lse, dvec, n_views, n_kpts, scale):
-    """Plain version of `cross_attn_bwd_dq` and `cross_attn_bwd_dkv`: p rebuilt
-    from the LSE under the cross mask -> (dq, dk, dv)."""
+def _cross_p_ds(q, k, v, do, lse, dvec, n_views, n_kpts, scale):
+    """float32 p (zero under the mask) and ds = p (dO v^T - dvec) of the cross
+    backward."""
+    q, k, v, do = (x.float() for x in (q, k, v, do))
     s = torch.einsum("bqd,bkd->bqk", q, k) * scale
     p = torch.exp(s - lse[..., None])
     p = p.masked_fill(~cross_view_mask(n_views, n_kpts, device=q.device), 0.0)
-    ds = p * (do @ v.transpose(1, 2) - dvec[..., None])
-    return (ds @ k) * scale, (ds.transpose(1, 2) @ q) * scale, p.transpose(1, 2) @ do
+    return p, p * (do @ v.transpose(1, 2) - dvec[..., None])
+
+
+def cross_attn_bwd_plain(q, k, v, do, lse, dvec, n_views, n_kpts, scale):
+    """Plain version of `cross_attn_bwd_dq` and `cross_attn_bwd_dkv`: p rebuilt
+    from the LSE under the cross mask -> (dq, dk, dv). bfloat16 q, k, v, dO
+    take the Pallas bodies' roundings: float32 s, p, dp and ds, then dq =
+    bf16(scale bf16(ds) k), dk = bf16(scale bf16(ds)^T q), dv = bf16(bf16(p)^T
+    dO)."""
+    p, ds = _cross_p_ds(q, k, v, do, lse, dvec, n_views, n_kpts, scale)
+    if q.dtype != torch.bfloat16:
+        return (ds @ k) * scale, (ds.transpose(1, 2) @ q) * scale, p.transpose(1, 2) @ do
+    bf = torch.bfloat16
+    q, k, do = q.float(), k.float(), do.float()
+    ds, p = ds.to(bf).float(), p.to(bf).float()
+    return (((ds @ k) * scale).to(bf), ((ds.transpose(1, 2) @ q) * scale).to(bf),
+            (p.transpose(1, 2) @ do).to(bf))
+
+
+def cross_attn_bwd_bf16_slack(q, k, v, do, lse, dvec, n_views, n_kpts, scale):
+    """The widening terms of the bfloat16 backward's one-ulp gate (see
+    BF16_SUM_TOL): ((abs_scale, flips) of dq, of dk, of dv), float32, each
+    the shape of its gradient; `bf16_ulp_error(kernel, plain, *terms)`."""
+    p, ds = _cross_p_ds(q, k, v, do, lse, dvec, n_views, n_kpts, scale)
+    aq, ak, ado = q.float().abs(), k.float().abs(), do.float().abs()
+    ads, uds, up = ds.abs(), bf16_ulp(ds), bf16_ulp(p) * (p > 0)
+    uds = uds * (ds != 0)
+    return ((scale * (ads @ ak), scale * (uds @ ak)),
+            (scale * (ads.transpose(1, 2) @ aq), scale * (uds.transpose(1, 2) @ aq)),
+            (p.transpose(1, 2) @ ado, up.transpose(1, 2) @ ado))
 
 
 def _split_merge(B, S, h, dh):
@@ -293,14 +376,13 @@ def _kernel_view_attention(q, k, v, num_heads, n_views, n_kpts, mode):
 class _FusedViewAttention(torch.autograd.Function):
     """Cross layers (n_views > 1): forward with the LSE stash, backward from it
     (JAX `_fwd`/`_bwd` of `fused_view_attention`), on the kernels for CUDA
-    tensors and on their plain versions for CPU tensors. Other layers: forward
-    on the kernel (CPU: the plain version), backward = VJP of the plain version
-    recomputed from the saved q, k, v (the probabilities are never kept)."""
+    tensors and on their plain versions for CPU tensors, float32 or bfloat16.
+    Other layers: forward on the kernel (CPU: the plain version), backward =
+    VJP of the masked `multi_head_attention` recomputed from the saved q, k, v
+    (the probabilities are never kept)."""
 
     @staticmethod
     def forward(ctx, q, k, v, num_heads, n_views, n_kpts, mode):
-        if torch.bfloat16 in (q.dtype, k.dtype, v.dtype):
-            raise NotImplementedError(f"fused_view_attention under grad: {BF16_TRAINING}")
         ctx.structure = (num_heads, n_views, n_kpts, mode)
         ctx.flash = mode == "cross" and n_views > 1
         if not ctx.flash:
@@ -320,10 +402,11 @@ class _FusedViewAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         num_heads, n_views, n_kpts, mode = ctx.structure
-        if not ctx.flash:
+        if not ctx.flash:  # JAX: the VJP of `_ref_attention`
             with torch.enable_grad():
                 q, k, v = (x.detach().requires_grad_() for x in ctx.saved_tensors)
-                out = plain_view_attention(q, k, v, *ctx.structure)
+                out = multi_head_attention(q, k, v, num_heads,
+                                           mask=_mode_mask(n_views, n_kpts, mode, q.device))
                 dq, dk, dv = torch.autograd.grad(out, (q, k, v), g)
             return dq, dk, dv, None, None, None, None
         qs, ks, vs, o_s, lse = ctx.saved_tensors
@@ -331,7 +414,7 @@ class _FusedViewAttention(torch.autograd.Function):
         dh = D // num_heads
         split, merge = _split_merge(B, S, num_heads, dh)
         do_s = split(g)
-        dvec = (do_s * o_s).sum(dim=-1)
+        dvec = (do_s.float() * o_s.float()).sum(dim=-1)  # float32 in every mode
         scale = 1.0 / (dh ** 0.5)
         args = (qs, ks, vs, do_s, lse, dvec, n_views, n_kpts, scale)
         if g.is_cuda:

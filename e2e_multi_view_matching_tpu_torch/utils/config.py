@@ -31,9 +31,10 @@ def add_generic_arguments(parser):
                              "grad), xla = plain log domain, mxu = plain scaling domain")
     parser.add_argument("--compute_dtype", type=str, default="float32",
                         choices=["float32", "bfloat16"],
-                        help="SuperPoint-trunk / matcher compute dtype (parameters, the "
-                             "pair scores and the Sinkhorn stay float32; bfloat16 runs "
-                             "the bfloat16 attention kernels; eval only for now)")
+                        help="SuperPoint-trunk / matcher compute dtype (parameters, "
+                             "gradients, Adam, the pair scores and the Sinkhorn stay "
+                             "float32; bfloat16 runs the bfloat16 attention kernels, in "
+                             "eval and in training)")
     parser.add_argument("--device", type=str, default="cuda",
                         help="torch device; the CPU runs only when asked for")
     return parser

@@ -112,17 +112,40 @@ def test_multi_head_attention_matches_jax(rng, K, dh):
 
 
 def test_bf16_attention_on_cpu_takes_the_twin_and_refuses_grad():
-    """A CPU bfloat16 tensor takes the kernels' plain twin (bit for bit), and
-    bfloat16 under grad raises (the training slice) instead of running."""
+    """A CPU bfloat16 tensor takes the kernels' plain twin (bit for bit); under
+    grad (bfloat16 training) it takes the bfloat16 VJP: a cross layer the
+    twins of the LSE forward and of dq and dk/dv (the LSE twin's value and
+    the twins' gradients, bit for bit), a full layer the VJP of bfloat16
+    `multi_head_attention` (bit for bit), with bfloat16 gradients. (The name
+    is from the slice before bfloat16 training, when grad raised here.)"""
     g = torch.Generator().manual_seed(0)
-    q, k, v = (torch.randn(2, 48, 64, generator=g).to(BF16) for _ in range(3))
+    q, k, v, w = (torch.randn(2, 48, 64, generator=g).to(BF16) for _ in range(4))
     for mode, n_views in (("cross", 3), ("full", 1)):
-        out = ac.fused_view_attention(q, k, v, 4, n_views, 48 // n_views, mode)
-        assert torch.equal(out, ac.plain_view_attention(q, k, v, 4, n_views, 48 // n_views,
-                                                        mode))
-        with pytest.raises(NotImplementedError, match="next slice"):
-            ac.fused_view_attention(q.clone().requires_grad_(), k, v, 4, n_views,
-                                    48 // n_views, mode)
+        K_ = 48 // n_views
+        out = ac.fused_view_attention(q, k, v, 4, n_views, K_, mode)
+        assert torch.equal(out, ac.plain_view_attention(q, k, v, 4, n_views, K_, mode))
+        xs = [x.clone().requires_grad_() for x in (q, k, v)]
+        out = ac.fused_view_attention(*xs, 4, n_views, K_, mode)
+        grads = torch.autograd.grad(out, xs, w)
+        assert all(gr.dtype == BF16 for gr in grads)
+        if mode == "full":
+            assert torch.equal(out.detach(), ac.plain_view_attention(q, k, v, 4, 1, K_, mode))
+            ys = [x.clone().requires_grad_() for x in (q, k, v)]
+            refs = torch.autograd.grad(tatt.multi_head_attention(*ys, 4), ys, w)
+        else:
+            def split(x):
+                return x.reshape(2, 48, 4, 16).transpose(1, 2).reshape(8, 48, 16).contiguous()
+
+            def merge(x):
+                return x.reshape(2, 4, 48, 16).transpose(1, 2).reshape(2, 48, 64)
+
+            qs, ks, vs, ws = map(split, (q, k, v, w))
+            o, lse = ac.cross_attn_fwd_lse_plain(qs, ks, vs, n_views, K_, 0.25)
+            assert torch.equal(out.detach(), merge(o))  # the LSE twin's value
+            refs = [merge(x) for x in ac.cross_attn_bwd_plain(
+                qs, ks, vs, ws, lse, (ws.float() * o.float()).sum(-1), n_views, K_, 0.25)]
+        for gr, r in zip(grads, refs):
+            assert torch.equal(gr, r), mode
 
 
 # --------------------------------------------------------------- SuperPoint
@@ -256,12 +279,50 @@ def test_matcher_matches_jax(matcher_case, impls):
 
 
 def test_matcher_refuses_bf16_training():
-    """`train=True` in bfloat16 raises until the bfloat16 training slice."""
-    port = tm.MultiViewMatcher(tm.MatcherConfig(**M_CFG, compute_dtype="bfloat16"))
-    x = torch.zeros(1, 2, 8, 2)
-    with pytest.raises(NotImplementedError, match="next slice"):
-        port(x, torch.zeros(1, 2, 8), torch.zeros(1, 2, 8, 64), torch.full((1, 2, 2), 64.0),
-             train=True)
+    """`train=True` in bfloat16 trains (the name is from the slice before
+    bfloat16 training, when it raised), with either attention impl: on
+    seeded weights (flax's initializers) the forward in training mode gives
+    float32 log assignments and confidences, every parameter gets a finite
+    float32 gradient, and the BatchNorm running statistics move from float32
+    batch statistics of the upcast input: after one call the keypoint
+    encoder's first running mean equals 0.9 x the old + 0.1 x the float32
+    mean of its input, the first Dense layer's bfloat16 output upcast, to
+    float32 rounding."""
+    from e2e_multi_view_matching_tpu_torch.models.convert import init_like_flax_
+
+    rng = np.random.default_rng(5)
+    V, K = 2, 16
+    desc = rng.normal(size=(2, V, K, 64)).astype(np.float32)
+    desc /= np.linalg.norm(desc, axis=-1, keepdims=True)
+    inputs = (torch.from_numpy(rng.uniform(0, 64, size=(2, V, K, 2)).astype(np.float32)),
+              torch.from_numpy(rng.uniform(0, 1, size=(2, V, K)).astype(np.float32)),
+              torch.from_numpy(desc), torch.full((2, V, 2), 64.0))
+    orig = tm.batch_norm
+    for impl in ("xla", "cuda"):
+        port = tm.MultiViewMatcher(tm.MatcherConfig(**M_CFG, compute_dtype="bfloat16",
+                                                    attention_impl=impl))
+        init_like_flax_(port, torch.Generator().manual_seed(0))
+        old = port.kenc.bn_0.running_mean.clone()
+        seen = {}
+
+        def spy(x, bn, train, seen=seen):
+            seen.setdefault(id(bn), x)
+            return orig(x, bn, train)
+
+        tm.batch_norm = spy
+        try:
+            out = port(*inputs, train=True)
+        finally:
+            tm.batch_norm = orig
+        assert out["log_assignment"].dtype == out["conf_scores"].dtype == torch.float32
+        x0 = seen[id(port.kenc.bn_0)]
+        assert x0.dtype == torch.float32 and torch.equal(x0, x0.to(BF16).float())
+        expect = 0.9 * old + 0.1 * x0.reshape(-1, x0.shape[-1]).mean(0)
+        torch.testing.assert_close(port.kenc.bn_0.running_mean, expect, rtol=1e-6, atol=1e-7)
+        loss = out["log_assignment"].exp().mean() + out["conf_scores"].mean()
+        grads = torch.autograd.grad(loss, list(port.parameters()), allow_unused=True)
+        assert all(g is not None and g.dtype == torch.float32 and bool(torch.isfinite(g).all())
+                   for g in grads), impl
 
 
 # --------------------------------------------------------------- eval loops
@@ -398,16 +459,22 @@ def test_eval_pairs_in_bf16_on_cpu(tmp_path):
 # ------------------------------------------------------------ command lines
 
 def test_cli_flags_take_bf16_for_eval_and_refuse_it_for_training():
-    """Both eval command lines take `--compute_dtype bfloat16`; `cli.train`
-    refuses it, naming the bfloat16 training slice."""
+    """All three command lines take `--compute_dtype bfloat16`, `cli.train`
+    too since bfloat16 training (the name is from the slice before it, when
+    `cli.train` refused the flag); float32 stays the default, and the flag
+    builds bfloat16 models for training."""
     from e2e_multi_view_matching_tpu_torch.cli import eval_multi_view, eval_pairs, train
 
-    for cli in (eval_multi_view, eval_pairs):
+    for cli in (eval_multi_view, eval_pairs, train):
         assert cli.parse_args(["--compute_dtype", "bfloat16"]).compute_dtype == "bfloat16"
         assert cli.parse_args([]).compute_dtype == "float32"
-    with pytest.raises(SystemExit):
-        train.parse_args(["--compute_dtype", "bfloat16"])
-    assert train.parse_args([]).compute_dtype == "float32"
+    opt = train.parse_args(["--compute_dtype", "bfloat16", "--dataset", "scannet"])
+    opt.gnn_layers, opt.cross_attention_layers, opt.tuple_size = 1, 1, 2
+    opt.nms_radius, opt.keypoint_threshold, opt.max_keypoints, opt.remove_borders = 4, 0.0, 8, 4
+    opt.attention_impl = opt.sinkhorn_impl = "xla"  # `setup_run` resolves "auto"
+    sp, matcher = train.build_models(opt)
+    assert sp.config.compute_dtype == matcher.config.compute_dtype == "bfloat16"
+    assert sp.config.fill_with_random_keypoints
 
 
 def test_strict_float32_turns_tf32_off_in_every_mode():

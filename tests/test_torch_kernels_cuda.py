@@ -2,9 +2,11 @@
 kernels (`attn_fwd` in its three modes, `cross_attn_fwd`, `cross_attn_fwd_lse`),
 their bfloat16 tensor-core counterparts (`attn_fwd` and `cross_attn_fwd` on
 bfloat16 tensors), the backward kernels (`cross_attn_bwd_dq`, `cross_attn_bwd_dkv`) at ragged and
-tiny shapes, the cross-attention kernels of the training path (the forward
-with the LSE stash, dq and dk/dv) against their plain PyTorch versions, and
-the autograd function that joins them.
+tiny shapes, the bfloat16 tensor-core kernels of the training path
+(`cross_attn_fwd_lse`, `cross_attn_bwd_dq` and `cross_attn_bwd_dkv` on bfloat16
+tensors) at the same shapes, the cross-attention kernels of the training path
+(the forward with the LSE stash, dq and dk/dv) against their plain PyTorch
+versions, and the autograd function that joins them, in float32 and bfloat16.
 
 Every test is marked `cuda` and skips without a GPU. The file imports neither
 JAX nor the JAX package, so it also runs on a machine that has only PyTorch
@@ -160,6 +162,120 @@ class TestBf16ForwardKernels:
                          "cross_attn_fwd_bf16": 1}
 
 
+def _bf16_bwd_inputs(cuda, V, K, dh):
+    """bfloat16 q, k, v, dO, the plain forward's float32 LSE and dvec = rowsum(dO
+    O) in float32 plus a unit normal (as `TestBackwardKernels` takes it)."""
+    q, k, v = (x.bfloat16() for x in _fwd_inputs(cuda, V, K, dh))
+    g = torch.Generator(device=cuda).manual_seed(7 + 1000 * K + 10 * V + dh)
+    do = torch.randn(q.shape, generator=g, device=cuda).bfloat16()
+    scale = 1.0 / dh ** 0.5
+    o, lse = ac.cross_attn_fwd_lse_plain(q, k, v, V, K, scale)
+    dvec = (do.float() * o.float()).sum(-1) + torch.randn(lse.shape, generator=g, device=cuda)
+    return q, k, v, do, lse, dvec, V, K, scale
+
+
+@pytest.mark.cuda
+class TestBf16TrainingKernels:
+    """The bfloat16 tensor-core kernels of the training path (route: nvcc-built
+    CUDA C++, sm_90a, mma.sync bf16): `cross_attn_fwd_lse` on bfloat16 q, k, v
+    against `cross_attn_fwd_lse_plain` (the output within the forward's
+    one-ulp gate, bit for bit the eval kernel's; the float32 LSE within 1e-5
+    absolute, relative above 1), `cross_attn_bwd_dq` and `cross_attn_bwd_dkv` on
+    bfloat16 q, k, v, dO against `cross_attn_bwd_plain` (the Pallas bodies'
+    roundings): every element within one bfloat16 ulp of the plain version +
+    1e-6 + 2^-18 of its absolute scale + one bfloat16 ulp of every rounded p
+    or ds times its partner (`cross_attn_bwd_bf16_slack`: the kernels form p
+    and ds in another order, so a rounding may land on the neighbour); two
+    runs give the same bits; only the bfloat16 counters move."""
+
+    @pytest.mark.parametrize("V,K,dh", FWD_SHAPES)
+    def test_cross_fwd_lse_bf16_matches_plain(self, cuda, V, K, dh):
+        q, k, v = (x.bfloat16() for x in _fwd_inputs(cuda, V, K, dh))
+        scale = 1.0 / dh ** 0.5
+        before = dict(ac.launches)
+        o, lse = ac.cross_attn_fwd_lse(q, k, v, V, K, scale)
+        assert o.dtype == torch.bfloat16 and lse.dtype == torch.float32
+        o_ref, lse_ref = ac.cross_attn_fwd_lse_plain(q, k, v, V, K, scale)
+        abs_scale = ac.plain_view_attention(q.float(), k.float(), v.float().abs(), 1, V, K,
+                                            "cross")
+        assert ac.bf16_ulp_error(o, o_ref, abs_scale) <= 1.0
+        assert float((lse - lse_ref).abs().max()) <= 1e-5 * max(1.0, float(lse_ref.abs().max()))
+        o2, lse2 = ac.cross_attn_fwd_lse(q, k, v, V, K, scale)
+        assert torch.equal(o, o2) and torch.equal(lse, lse2)
+        assert torch.equal(o, ac.cross_attn_fwd(q, k, v, V, K, scale))
+        moved = {n: ac.launches[n] - before[n] for n in before}
+        assert moved == {**{n: 0 for n in before}, "cross_attn_fwd_lse_bf16": 2,
+                         "cross_attn_fwd_bf16": 1}
+
+    @pytest.mark.parametrize("V,K,dh", FWD_SHAPES)
+    def test_bwd_bf16_kernels_match_plain(self, cuda, V, K, dh):
+        args = _bf16_bwd_inputs(cuda, V, K, dh)
+        before = dict(ac.launches)
+        dq = ac.cross_attn_bwd_dq(*args)
+        dk, dv = ac.cross_attn_bwd_dkv(*args)
+        refs = ac.cross_attn_bwd_plain(*args)
+        slack = ac.cross_attn_bwd_bf16_slack(*args)
+        for name, a, r, (abs_scale, flips) in zip(("dq", "dk", "dv"), (dq, dk, dv), refs,
+                                                  slack):
+            assert a.dtype == r.dtype == torch.bfloat16, name
+            assert ac.bf16_ulp_error(a, r, abs_scale, flips) <= 1.0, name
+        assert torch.equal(dq, ac.cross_attn_bwd_dq(*args))
+        dk2, dv2 = ac.cross_attn_bwd_dkv(*args)
+        assert torch.equal(dk, dk2) and torch.equal(dv, dv2)
+        moved = {n: ac.launches[n] - before[n] for n in before}
+        assert moved == {**{n: 0 for n in before}, "cross_attn_bwd_dq_bf16": 2,
+                         "cross_attn_bwd_dkv_bf16": 2}
+
+    @pytest.mark.parametrize("dh", (16, 32, 64))
+    def test_bf16_training_kernels_do_not_spill(self, cuda, dh):
+        """Local memory 0 (no spills) and at least 2 blocks per SM, from the
+        CUDA runtime's view of each bfloat16 training kernel."""
+        for name in ("cross_attn_fwd_lse_bf16", "cross_attn_bwd_dq_bf16",
+                     "cross_attn_bwd_dkv_bf16"):
+            info = ac.kernel_info(name, dh)
+            assert info["local_bytes"] == 0, (name, info)
+            assert info["blocks_per_sm"] >= 2, (name, info)
+
+    def test_bf16_autograd_launches_the_bf16_kernels(self, cuda):
+        """`fused_view_attention` under grad on bfloat16 CUDA tensors: a cross
+        layer launches the bfloat16 LSE forward, dq and dk/dv kernels once each
+        and its gradients meet the gate against the plain version from the
+        same LSE; a full layer launches `attn_fwd_bf16` and takes the VJP of
+        bfloat16 `multi_head_attention` (the same bits as autograd through
+        it); no float32 kernel runs."""
+        g = torch.Generator(device=cuda).manual_seed(1)
+        V, K, h, dh = 5, 72, 4, 32
+        q, k, v, w = (torch.randn(2, V * K, h * dh, generator=g, device=cuda).bfloat16()
+                      for _ in range(4))
+        before = dict(ac.launches)
+        xs = [x.clone().requires_grad_() for x in (q, k, v)]
+        out = ac.fused_view_attention(*xs, h, V, K, "cross")
+        grads = torch.autograd.grad(out, xs, w)
+
+        def split(x):
+            return x.reshape(2, V * K, h, dh).transpose(1, 2).reshape(2 * h, V * K, dh)
+
+        qs, ks, vs, ws = (split(x).contiguous() for x in (q, k, v, w))
+        o, lse = ac.cross_attn_fwd_lse_plain(qs, ks, vs, V, K, dh ** -0.5)
+        dvec = (ws.float() * o.float()).sum(-1)
+        args = (qs, ks, vs, ws, lse, dvec, V, K, dh ** -0.5)
+        for a, r, (abs_scale, flips) in zip(grads, ac.cross_attn_bwd_plain(*args),
+                                            ac.cross_attn_bwd_bf16_slack(*args)):
+            assert a.dtype == torch.bfloat16
+            assert ac.bf16_ulp_error(split(a), r, abs_scale, flips) <= 1.0
+        t = [x.reshape(2 * V, K, h * dh).clone().requires_grad_() for x in (q, k, v)]
+        out = ac.fused_view_attention(*t, h, 1, K, "full")
+        grads = torch.autograd.grad(out, t, w.reshape(2 * V, K, h * dh))
+        t2 = [x.detach().clone().requires_grad_() for x in t]
+        ref = ac.multi_head_attention(*t2, h)
+        for a, r in zip(grads, torch.autograd.grad(ref, t2, w.reshape(2 * V, K, h * dh))):
+            assert torch.equal(a, r)
+        moved = {n: ac.launches[n] - before[n] for n in before}
+        assert moved == {**{n: 0 for n in before}, "attn_fwd_bf16": 1,
+                         "cross_attn_fwd_lse_bf16": 1, "cross_attn_bwd_dq_bf16": 1,
+                         "cross_attn_bwd_dkv_bf16": 1}
+
+
 @pytest.mark.cuda
 class TestBackwardKernels:
     """The register-tiled backward kernels against their plain version
@@ -255,29 +371,39 @@ class TestCrossKernels:
             assert ac.launches[name] == before[name] + 1, name
 
     def test_wrappers_raise_instead_of_falling_back(self, cuda):
-        """The bfloat16 training path raises on CUDA tensors (the training
-        kernels take float32 only, and bfloat16 under grad is the next slice
-        of the port), as do mixed dtypes and an unsupported head width."""
+        """Mixed dtypes, a bfloat16 LSE or dvec, an unsupported head width and
+        a CPU operand raise on the card instead of falling back; bfloat16 under
+        grad launches the bfloat16 kernels (their counters move, no float32
+        kernel's)."""
         x = torch.zeros(2, 48, 16, device=cuda)
         r = torch.zeros(2, 48, device=cuda)
         xb = x.bfloat16()
         with pytest.raises(ValueError):
-            ac.cross_attn_fwd_lse(xb, xb, xb, 3, 16, 0.25)
+            ac.cross_attn_fwd_lse(xb, x, xb, 3, 16, 0.25)
         with pytest.raises(ValueError):
-            ac.cross_attn_bwd_dq(xb, xb, xb, xb, r, r, 3, 16, 0.25)
+            ac.cross_attn_bwd_dq(xb, xb, xb, xb, r.bfloat16(), r, 3, 16, 0.25)
         with pytest.raises(ValueError):
             ac.cross_attn_bwd_dq(x, x, x, xb, r, r, 3, 16, 0.25)
         with pytest.raises(ValueError):
-            ac.cross_attn_bwd_dkv(xb, xb, xb, xb, r, r, 3, 16, 0.25)
+            ac.cross_attn_bwd_dkv(xb, xb, xb, xb, r, r.bfloat16(), 3, 16, 0.25)
         with pytest.raises(ValueError):
             ac.cross_attn_fwd(x, xb, x, 3, 16, 0.25)
+        with pytest.raises(ValueError):
+            ac.cross_attn_bwd_dkv(xb, xb.cpu(), xb, xb, r, r, 3, 16, 0.25)
         y = torch.zeros(2, 48, 8, device=cuda)
         with pytest.raises(ValueError):
             ac.cross_attn_bwd_dkv(y, y, y, y, r, r, 3, 16, 0.25)
         with pytest.raises(ValueError):
             ac.attn_fwd(y.bfloat16(), y.bfloat16(), y.bfloat16(), 16, "full", 0.25)
-        for mode in ("cross", "full"):
+        for mode, moves in (("cross", ("cross_attn_fwd_lse_bf16", "cross_attn_bwd_dq_bf16",
+                                       "cross_attn_bwd_dkv_bf16")),
+                            ("full", ("attn_fwd_bf16",))):
             qkv = [torch.zeros(1, 48, 32, device=cuda, dtype=torch.bfloat16,
                                requires_grad=True) for _ in range(3)]
-            with pytest.raises(NotImplementedError, match="next slice"):
-                ac.fused_view_attention(*qkv, 2, 3, 16, mode)
+            before = dict(ac.launches)
+            out = ac.fused_view_attention(*qkv, 2, 3, 16, mode)
+            grads = torch.autograd.grad(out.float().sum(), qkv)
+            assert all(g.dtype == torch.bfloat16 and bool(torch.isfinite(g.float()).all())
+                       for g in grads)
+            moved = {n: ac.launches[n] - before[n] for n in before}
+            assert moved == {**{n: 0 for n in before}, **{n: 1 for n in moves}}, mode
