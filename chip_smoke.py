@@ -6,7 +6,10 @@
 Phases, each fatal on failure:
   1. build      -- compile every hand-written kernel from `ops/csrc/` (nvcc,
                    one process per source, started together); a ptxas spill
-                   in an attention kernel (float32 or bfloat16) fails it.
+                   in an attention kernel (float32 or bfloat16) fails it, and
+                   so does a Hopper forward kernel (`attn_fwd_bf16`,
+                   `cross_attn_fwd_bf16`) whose SASS (cuobjdump) lacks HGMMA
+                   or UTMALDG.
   2. device     -- print the card's name and power limit (nvidia-smi).
   3. kernel     -- each of the fourteen kernels against its plain PyTorch version
                    at the shapes of its main path (eval: V=5, K=1024; training:
@@ -32,7 +35,8 @@ Phases, each fatal on failure:
                    same eval, pair and K = 2048 shapes and in every mode at
                    ragged ones, held to one bfloat16 ulp of their plain twin
                    (+ 2^-18 of the output's absolute scale), beside SDPA on
-                   the same bfloat16 inputs and the float32 kernel. The
+                   the same bfloat16 inputs, the float32 kernel and their
+                   design floor (4 products a pair). The
                    bfloat16 training kernels (`cross_attn_fwd_lse_bf16`,
                    `cross_attn_bwd_dq_bf16`, `cross_attn_bwd_dkv_bf16`) at the
                    training shape (32 x 2000 x 64) and at the eval and pair
@@ -69,7 +73,9 @@ Phases, each fatal on failure:
                    from the float32 kernels' on no more of the matched
                    keypoints than the plain bfloat16 run's + 1% + 3
                    standard errors of the difference (BF16_MATCH_SLACK);
-                   the stage times of a sub-chunk.
+                   the stage times of a sub-chunk and the matcher's device
+                   time by kernel group (the bf16 self and cross kernels
+                   apart) under torch.profiler.
   7. train_path -- `cli.train.train` at the full ScanNet 5-tuple training
                    width (V=5, K=400, B=8, 480x480, 7 x (self + 3 x cross), 100
                    iterations, stage 1, f32) on seeded plane scenes with exact
@@ -217,6 +223,9 @@ OFF_PATH_KERNELS = ("sinkhorn_log",)
 # Sources whose kernels must not spill registers: the build phase fails on a
 # spill (the first dk/dv kernel lost 5x to one).
 SPILL_FREE_SOURCES = ("attention_cuda", "attention_bf16_cuda")
+# The Hopper kernels (TMA loads, wgmma products): the build phase fails unless
+# their SASS holds both.
+HOPPER_KERNELS = ("attn_fwd_bf16_kernel", "cross_attn_fwd_bf16_kernel")
 
 
 class SmokeFailure(RuntimeError):
@@ -270,14 +279,20 @@ def build_phase():
 
     def kernel_name(mangled):
         # a mangled name is a run of <length><identifier>; take the *_kernel
-        # one and the integer template arguments after it (ILi64E -> 64)
+        # one and the integer template arguments after it (ILi64E -> 64). The
+        # length may follow other digits (the anonymous namespace's hash), so
+        # of the identifiers that end in the same "_kernel" take the shortest.
+        found = []
         for m in re.finditer(r"\d+", mangled):
-            for k in range(len(m.group())):  # the length may follow other digits
+            for k in range(len(m.group())):
                 ident = mangled[m.end():m.end() + int(m.group()[k:])]
                 if ident.endswith("_kernel") and "_kernel" not in ident[:-7]:
-                    args = re.findall(r"L[ib](\d+)E", mangled[m.end() + len(ident):])
-                    return ident + (f"<{','.join(args)}>" if args else "")
-        return mangled
+                    found.append((len(ident), m.end() + len(ident), ident))
+        if not found:
+            return mangled
+        _, end, ident = min(found)
+        args = re.findall(r"L[ib](\d+)E", mangled[end:])
+        return ident + (f"<{','.join(args)}>" if args else "")
 
     spilled = []
     for name, log in logs.items():
@@ -286,13 +301,36 @@ def build_phase():
             entry = re.search(r"Compiling entry function '(\w+)'", line)
             if entry:
                 kernel = kernel_name(entry.group(1))
-            elif "registers" in line or "spill" in line:
+            elif "registers" in line or "spill" in line or "wgmma" in line:
                 print(f"[ptxas {name}] {kernel}: {line.split(':', 1)[-1].strip()}")
                 spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
                 if name in SPILL_FREE_SOURCES and spill and int(spill.group(1)) + int(spill.group(2)):
                     spilled.append(f"{kernel} ({spill.group(0)})")
-    emit({"phase": "build", "sources": sorted(logs), "seconds": round(dt, 3)})
+    sass = _sass_flags(cuda_build, "attention_bf16_cuda", kernel_name)
+    emit({"phase": "build", "sources": sorted(logs), "seconds": round(dt, 3),
+          "sass_attention_bf16": sass})
     check(not spilled, f"ptxas spills: {'; '.join(spilled)}")
+    for name in HOPPER_KERNELS:
+        found = {k: v for k, v in sass.items() if k.startswith(name + "<")}
+        check(found and all(v["HGMMA"] and v["UTMALDG"] for v in found.values()),
+              f"{name}: no HGMMA or UTMALDG in its SASS ({found})")
+
+
+def _sass_flags(cuda_build, source, kernel_name):
+    """{kernel<args>: {"HGMMA": bool, "UTMALDG": bool}} of every kernel function in
+    the built library of `source`, from `cuobjdump -sass`: whether its code holds
+    warpgroup products (wgmma) and TMA loads."""
+    import re
+
+    tool = Path(cuda_build._nvcc()).parent / "cuobjdump"
+    lib = cuda_build._lib_path(source)[1]
+    text = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True, text=True,
+                          check=True, timeout=300).stdout
+    flags = {}
+    for part in re.split(r"\n\s*Function : ", text)[1:]:
+        name = kernel_name(part.split(None, 1)[0])
+        flags[name] = {op: op in part for op in ("HGMMA", "UTMALDG")}
+    return flags
 
 
 def device_phase():
@@ -305,23 +343,36 @@ def device_phase():
 
 
 def _occupancy(name, BH, S, n_views, n_kpts, dh, mode):
-    """Registers, blocks per SM and waves on this card of an attention kernel
-    at one shape, from the CUDA runtime. The grid: row tiles of each view for
-    the cross kernels (query rows; key rows for dk/dv), of all S rows for
-    `attn_fwd`."""
+    """Registers, blocks per SM (at the kernel's own block size), grid and
+    waves on this card of an attention kernel at one shape, from the CUDA
+    runtime. The grid: row tiles of each view for the cross kernels (query
+    rows; key rows for dk/dv), of all S rows for `attn_fwd`; the Hopper
+    kernels' persistent grid from `hopper_fwd_plan`, whose waves are the work
+    items a resident block walks."""
     import torch
 
     from e2e_multi_view_matching_tpu_torch.ops import attention_cuda as ac
 
     info = ac.kernel_info(name, dh, mode)
-    if name.startswith("attn_fwd"):
-        blocks = BH * math.ceil(S / info["tile_rows"])
-    else:
-        blocks = BH * n_views * math.ceil(n_kpts / info["tile_rows"])
     sms = torch.cuda.get_device_properties(0).multi_processor_count
+    extra = {}
+    if name in ac.HOPPER_FWD:
+        plan = ac.hopper_fwd_plan(name, BH, S, dh, n_views, n_kpts, sms=sms)
+        blocks, waves = plan["grid"], plan["waves"]
+        extra = {"threads": info["threads"], "persistent": info["persistent"],
+                 "rows_per_item": plan["tile_rows"], "work_items": plan["items"],
+                 "stages": plan["stages"], "swizzle_bytes": plan["swizzle_bytes"]}
+    else:
+        if name.startswith("attn_fwd"):
+            blocks = BH * math.ceil(S / info["tile_rows"])
+        else:
+            blocks = BH * n_views * math.ceil(n_kpts / info["tile_rows"])
+        waves = blocks / (info["blocks_per_sm"] * sms)
+        if "threads" in info:
+            extra = {"threads": info["threads"], "rows_per_item": info["tile_rows"]}
     return {"registers": info["registers"], "blocks_per_sm": info["blocks_per_sm"],
             "shared_bytes": info["shared_bytes"], "spill_bytes": info["local_bytes"],
-            "blocks": blocks, "waves": blocks / (info["blocks_per_sm"] * sms)}
+            "blocks": blocks, "waves": waves, **extra}
 
 
 def _sm_clock_under(fn, reps):
@@ -516,12 +567,16 @@ def _bf16_attention_record(by_name, records, name, replaces, mode, n_views, K, q
     BH = Bt * h
     b_ms, b_by, b_unit = bound(4.0 * BH * S * keys * dh, 2 * 4 * BH * S * dh,
                                exps=float(BH * S * keys), bf16=True)
+    # the design's tensor-core floor: 4 products a (query, key) pair (Q K^T and
+    # P V with P as three bf16 terms), twice the 2 that the bound counts
+    floor_ms = 8.0 * BH * S * keys * dh / PEAK_BF16_OPS * 1e3
     kname = f"{name}_bf16"
     where = f"{kname} {mode} V={n_views} K={K}"
     check(ulps <= BF16_ULP_TOL, f"{where}: {ulps} of the one-ulp gate (max |err| {err})")
     measured = {"max_abs_err": err, "ulp_gate": ulps, "tol": BF16_ULP_TOL, "ms": ms,
                 "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "bound_unit": b_unit,
-                "library_ms": lib_ms, "f32_kernel_ms": f32_ms, "shape": [BH, S, dh],
+                "design_floor_ms": floor_ms, "library_ms": lib_ms, "f32_kernel_ms": f32_ms,
+                "shape": [BH, S, dh],
                 **_occupancy(kname, BH, S, n_views, K, dh, mode)}
     if nb < Bt:
         measured["compared_batch"] = [nb, Bt]
@@ -736,7 +791,8 @@ def _cross_attn_train_bf16_records(g, f32_records):
                         "library_ms": lib_ms, "f32_kernel_ms": f32_ms[name],
                         "shape": [BH, S, dh], **_occupancy(name, BH, S, V, K, dh, "cross")}
             if name == names[0]:
-                measured.update(lse_abs_err=lse_err, lse_tol=CROSS_LSE_TOL)
+                measured.update(lse_abs_err=lse_err, lse_tol=CROSS_LSE_TOL,
+                                design_floor_ms=8.0 * pairs * dh / PEAK_BF16_OPS * 1e3)
                 check(lse_err <= CROSS_LSE_TOL, f"{where}: LSE error {lse_err}")
             else:
                 measured["plain_and_library_cover"] = "dq, dk and dv together"
@@ -1496,10 +1552,11 @@ def bf16_phase(n_tuples=8):
     check(1 - agree_k <= limit, f"bf16: the bf16 kernels' matches differ from the float32 "
           f"kernels' on {1 - agree_k} of the matched keypoints, the plain bf16 run's on "
           f"{1 - agree_p} (limit {limit})")
-    # the stage times alone, to keep the whole run inside half its time limit
-    # (the bf16 sub-chunk's profile: PERF.md section 5)
+    # the stage times and the matcher's device time by kernel group (the bf16
+    # self and cross kernels apart); one rep and the matcher alone under the
+    # profiler keep the run near half its time limit
     breakdown_phase(sp, kernels, images, intr, size, reps=1, phase="breakdown_bf16",
-                    profile=False)
+                    profile="matcher")
     return launches
 
 
@@ -2266,12 +2323,14 @@ def _train_breakdown(sp, opt, state, dev, gen, reps=2, groups=None):
 
 
 # device time of an eval sub-chunk by kernel group (substrings of kernel names;
-# "attn_fwd_kernel" also names cross_attn_fwd_kernel)
+# "attn_fwd_kernel" also names cross_attn_fwd_kernel, "attn_fwd_bf16_kernel"
+# cross_attn_fwd_bf16_kernel; "::attn_fwd_bf16_kernel" the self layers' only)
 EVAL_GROUPS = {
     "sinkhorn_scaling": ("scaling_cluster_kernel",),
     "attention_fwd_kernels": ("attn_fwd_kernel",),
     "cross_attn_fwd": ("cross_attn_fwd_kernel",),
     "attention_bf16_kernels": ("attn_fwd_bf16_kernel",),
+    "self_attn_fwd_bf16": ("::attn_fwd_bf16_kernel",),
     "cross_attn_fwd_bf16": ("cross_attn_fwd_bf16_kernel",)}
 # device time of a train step by kernel group (substrings of kernel names)
 TRAIN_GROUPS = {
@@ -2284,17 +2343,19 @@ TRAIN_BF16_GROUPS = {
     "sinkhorn_fwd": ("log_cluster_kernel",),
     "sinkhorn_bwd": ("bwd_cluster_kernel",),
     "self_attn_fwd_bf16": ("::attn_fwd_bf16_kernel",),
-    "cross_attn_fwd_lse_bf16": ("cross_attn_fwd_bf16_kernel",),
+    "cross_attn_fwd_lse_bf16": ("cross_attn_fwd_lse_bf16_kernel",),
     "cross_attn_bwd_bf16": ("cross_attn_bwd_dq_bf16", "cross_attn_bwd_dkv_bf16"),
     "float32_attention": ("attn_fwd_kernel<", "cross_attn_bwd_dq_kernel<",
                           "cross_attn_bwd_dkv_kernel<")}
 
 
 def breakdown_phase(sp, matcher, images, intr, size, reps=3, phase="breakdown",
-                    profile=True):
+                    profile="sub_chunk"):
     """Where one 8-tuple sub-chunk's time goes, stage by stage (host clock
     around synchronized work), and the unrolled-Jacobi share of the pose stage;
-    with `profile`, the device's busy time under torch.profiler."""
+    the device's busy time under torch.profiler over the whole sub-chunk
+    (`profile="sub_chunk"`) or over the matcher alone (`"matcher"`: its
+    kernels, without tracing the pose stage's ~160k launches)."""
     import torch
 
     from e2e_multi_view_matching_tpu_torch.cli.eval_multi_view import infer_subchunk
@@ -2325,8 +2386,9 @@ def breakdown_phase(sp, matcher, images, intr, size, reps=3, phase="breakdown",
         r6 = torch.ones(B * 10, 6, device="cuda")
         j24, _ = wall(lambda: eig_thresholded_solve(S24, r24, n_sweeps=8))
         j6, _ = wall(lambda: eig_thresholded_solve(S6, r6, n_sweeps=6))
-        busy = (_device_busy(lambda: infer_subchunk(sp, matcher, images, intr, size),
-                             groups=EVAL_GROUPS) if profile else {})
+        profiled = {"sub_chunk": lambda: infer_subchunk(sp, matcher, images, intr, size),
+                    "matcher": lambda: matcher(*args)}[profile]
+        busy = {"profiled": profile, **_device_busy(profiled, groups=EVAL_GROUPS)}
     # the multi-view BA solves 24x24 once per LM iteration (20); the two-view BA
     # solves 6x6 once per LM iteration (10)
     jacobi_ms = 20 * j24 + 10 * j6

@@ -173,17 +173,87 @@ def cross_attn_fwd_lse(q, k, v, n_views, n_kpts, scale):
 def kernel_info(name, dh, mode="cross"):
     """Occupancy of an attention kernel on the current card, as the CUDA
     runtime reports it: {blocks_per_sm, registers, local_bytes, shared_bytes,
-    tile_rows (rows a block owns: query rows, key rows for dk/dv)}."""
-    info = (ctypes.c_int * 5)()
-    if name.endswith("_bf16"):
+    tile_rows (rows a block owns: query rows, key rows for dk/dv)}; the
+    bfloat16 kernels also {threads (a block, the size the occupancy is asked
+    at), persistent (a grid of resident blocks walking the work items)}."""
+    bf16 = name.endswith("_bf16")
+    info = (ctypes.c_int * (7 if bf16 else 5))()
+    if bf16:
         rc = _lib_bf16().attn_bf16_kernel_info(dh, _KERNELS[(name, mode)],
                                                ctypes.addressof(info))
     else:
         rc = _lib().attn_kernel_info(dh, _KERNELS[(name, mode)], ctypes.addressof(info))
     if rc != 0:
         raise RuntimeError(f"attn_kernel_info failed for {name} (code {rc})")
-    return dict(zip(("blocks_per_sm", "registers", "local_bytes", "shared_bytes",
-                     "tile_rows"), info))
+    out = dict(zip(("blocks_per_sm", "registers", "local_bytes", "shared_bytes", "tile_rows",
+                    "threads"), info))
+    if bf16:
+        out["persistent"] = bool(info[6])
+    return out
+
+
+# The launch of the Hopper forward kernels (`attn_fwd_bf16`, `cross_attn_fwd_bf16`,
+# ops/csrc/attention_bf16_cuda.cu: HW_THREADS, HW_ROWS, BK, HW_STAGES, HSmem):
+# one block of a producer and two consumer warpgroups a work item of 128 query
+# rows at a time, persistent, one block an SM (the consumers take 232 registers).
+HOPPER_FWD = ("attn_fwd_bf16", "cross_attn_fwd_bf16")
+HOPPER_THREADS = 384
+HOPPER_ROWS = 128  # query rows of a work item, 64 a consumer warpgroup
+HOPPER_KEYS = 64  # keys a K/V tile
+HOPPER_STAGES = 4  # K/V tiles in flight
+SMEM_BYTES = 227 * 1024  # a block's shared memory on an H100
+
+
+def _cdiv(a, b):
+    return -(-a // b)
+
+
+def hopper_fwd_plan(name, BH, S, dh, n_views=1, n_kpts=None, sms=132):
+    """Launch plan of a Hopper forward kernel (`name` in HOPPER_FWD) on
+    (BH, S, dh), as its C entry point makes it: {threads, tile_rows, key_rows,
+    stages, swizzle_bytes (the TMA and wgmma swizzle: a row's 2 dh bytes),
+    shared_bytes, items (work items of 128 query rows), key_tiles (a work
+    item's), grid (persistent: min(items, sms)), waves (items a block)}.
+    `n_kpts` is the view length (the cross kernel's, and the masked modes')."""
+    if dh not in _HEAD_DIMS:
+        raise ValueError(f"the attention kernels take head widths {_HEAD_DIMS}")
+    if name == "attn_fwd_bf16":
+        items, key_tiles = BH * _cdiv(S, HOPPER_ROWS), _cdiv(S, HOPPER_KEYS)
+    elif name == "cross_attn_fwd_bf16":
+        if n_views < 2 or S != n_views * n_kpts:
+            raise ValueError("the cross-view kernels take n_views >= 2 and S = n_views * "
+                             "n_kpts")
+        items = BH * n_views * _cdiv(n_kpts, HOPPER_ROWS)
+        key_tiles = (n_views - 1) * _cdiv(n_kpts, HOPPER_KEYS)
+    else:
+        raise ValueError(f"no Hopper plan for {name}")
+    tile = HOPPER_KEYS * 2 * dh  # bytes of a K, a V tile or a 64-row half of Q
+    # two Q buffers of two halves, the K and V stages, 12 mbarriers, 1024 B of alignment
+    shared = 1024 + (4 + 2 * HOPPER_STAGES) * tile + 8 * (2 * HOPPER_STAGES + 4)
+    grid = min(items, sms)
+    return {"threads": HOPPER_THREADS, "tile_rows": HOPPER_ROWS, "key_rows": HOPPER_KEYS,
+            "stages": HOPPER_STAGES, "swizzle_bytes": 2 * dh, "shared_bytes": shared,
+            "items": items, "key_tiles": key_tiles, "grid": grid, "waves": items / grid}
+
+
+def hopper_fwd_walk(name, S, n_views=1, n_kpts=None):
+    """The work items of one (batch*head) slice in the order the Hopper forward
+    kernel walks them: [(row0, n_live, [(key0, n_valid), ...])]. Rows row0 ..
+    row0 + 127 are computed and the first n_live stored; a key tile reads 64
+    rows from key0, the first n_valid weigh, the rest weigh 0. The cross
+    kernel's items lie inside one view and take the other views' keys one view
+    at a time; the masked kernel's take all S keys."""
+    if name == "attn_fwd_bf16":
+        keys = [(k0, min(HOPPER_KEYS, S - k0)) for k0 in range(0, S, HOPPER_KEYS)]
+        return [(r0, min(HOPPER_ROWS, S - r0), keys) for r0 in range(0, S, HOPPER_ROWS)]
+    hopper_fwd_plan(name, 1, S, 16, n_views, n_kpts)  # checks name and shape
+    items = []
+    for qv in range(n_views):
+        keys = [(w * n_kpts + j, min(HOPPER_KEYS, n_kpts - j))
+                for w in range(n_views) if w != qv for j in range(0, n_kpts, HOPPER_KEYS)]
+        items += [(qv * n_kpts + r0, min(HOPPER_ROWS, n_kpts - r0), keys)
+                  for r0 in range(0, n_kpts, HOPPER_ROWS)]
+    return items
 
 
 def _check_bwd(q, k, v, do, lse, dvec, n_views, n_kpts):

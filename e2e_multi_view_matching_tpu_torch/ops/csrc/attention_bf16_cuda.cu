@@ -21,7 +21,10 @@
 // in float32 from the bfloat16 inputs (each product of two bfloat16 values is
 // exact in float32), times the scale in float32; P = exp(S - m) in float32; O = P V
 // with P kept in float32; O / (l + 1e-9) rounded to bfloat16 once; the LSE kernel
-// also stores m + log(l + 1e-9) in float32. Plain versions:
+// also stores m + log(l + 1e-9) in float32. The kernels work in base 2 (log2 e
+// folded into the scale); as in the TPU kernels masked scores are -1e9 (times
+// log2 e), m starts there, and keys past the range weigh exactly 0 (-INFINITY).
+// Plain versions:
 // ops/attention_cuda.py::plain_view_attention and cross_attn_fwd_lse_plain (q, k, v
 // upcast to float32, the float32 masked attention, the output rounded to bfloat16).
 //
@@ -34,41 +37,61 @@
 // Plain version: ops/attention_cuda.py::cross_attn_bwd_plain on bfloat16 tensors.
 //
 // What bounds them on an H100: the tensor cores' bf16 rate (989 TFLOP/s dense) for
-// the products (2 a (query, key) pair in the forward, 3 in dq, 4 in dk/dv), and the
+// the products (2 a (query, key) pair in the forward as SDPA computes it, 4 in
+// these forwards with P as three bf16 terms, 3 in dq, 4 in dk/dv), and the
 // exponentials (one a pair, 4.18e12/s on the SFUs); device memory is far below
 // both (each block streams its keys, or queries, once from L2).
 //
-// Design: FlashAttention-2 style on mma.sync.m16n8k16 (bf16 in, f32 accumulate).
-// 4 warps own 64 rows, 16 each; a warp reads its A fragments (Q, or dO, K, V of
-// the rows it owns) from shared memory with ldmatrix once per streamed tile (DH/16
-// k-steps). The streamed operands go through shared memory in tiles of 64 rows with
-// cp.async, double-buffered (tile t+1 lands while tile t is computed), rows padded
-// by 8 bf16 so that ldmatrix reads conflict-free; a streamed operand whose rows
-// index the product's columns (K in S = Q K^T) is read with ldmatrix as the B
-// operand, one whose rows index the sum (V in P V) with ldmatrix.trans.
-//   The online softmax works on the S accumulators in registers: each thread
-// holds 2 columns of 8 key blocks for 2 rows, row maxima meet across the 4 lanes
-// of a quad in two __shfl_xor_sync, exp2f with log2(e) folded into the scale
-// (as the float32 kernels), each thread keeps its own part of the row sum l until
-// the end. Constants as in the TPU kernels: masked scores -1e9 (times log2 e), m
-// starts there, keys past the end of the range weigh exactly 0 (-INFINITY).
-//   P V with P in float32 on bf16 tensor cores: P = P_hi + P_mid + P_lo, three
-// bfloat16 terms that together hold P's 24 significant bits exactly (each term
-// is the round-to-nearest of what the ones before it left), built straight from
-// the S accumulator layout, which is the A-operand layout of the next product.
-// Three mma's into one float32 accumulator then give P V with exact products,
-// as the Pallas kernel's float32 dot does. (Two terms would leave up to 2^-16
-// |P| of each weight out: below an output's bf16 ulp on average, but not on
-// the outputs that cancel to near 0.) A tile's P V goes into a fresh
-// accumulator, which is added to O in float32 (O = O alpha + tile): the tensor
-// cores' float32 accumulation aligns to the largest term and drops the bits
-// below, so a running O over all keys drifted up to ~1.5e-6 of sum p |v| / l
-// (4e-6 absolute at |v| ~ 2 on an output that cancels to ~2e-5: 3.5 bf16 ulps
-// there); 12 accumulations a tile from 0 leave ~7e-7 of it (~2^-20), inside
-// the gate's 2^-18 (ops/attention_cuda.py::BF16_SUM_TOL). The backward kernels
-// sum each tile's products into a fresh accumulator the same way.
-//   Cross kernels: every row tile lies inside one view, and the streamed rows are
-// the other views' as one virtual range of (V-1) K rows with the own view cut out.
+// P V with P in float32 on bf16 tensor cores: P = P_hi + P_mid + P_lo, three
+// bfloat16 terms that together hold P's 24 significant bits exactly (each term is
+// the round-to-nearest of what the ones before it left), built straight from the S
+// accumulator layout, which is the A-operand layout of the next product. Three
+// products into one float32 accumulator then give P V with exact products, as the
+// Pallas kernel's float32 dot does. (Two terms would leave up to 2^-16 |P| of each
+// weight out: below an output's bf16 ulp on average, but not on the outputs that
+// cancel to near 0.) A tile's P V goes into a fresh accumulator, which is added to
+// O in float32 (O = O alpha + tile): the tensor cores' float32 accumulation aligns
+// to the largest term and drops the bits below, so a running O over all keys
+// drifted up to ~1.5e-6 of sum p |v| / l (4e-6 absolute at |v| ~ 2 on an output
+// that cancels to ~2e-5: 3.5 bf16 ulps there); 12 accumulations a 64-key tile from
+// 0 leave ~7e-7 of it (~2^-20), inside the gate's 2^-18
+// (ops/attention_cuda.py::BF16_SUM_TOL). The backward kernels sum each tile's
+// products into a fresh accumulator the same way.
+//
+// attn_fwd_bf16 and cross_attn_fwd_bf16 (the Hopper design, `hopper_fwd`): a
+// persistent grid of one 384-thread block per SM walks the work items of 128 query
+// rows (two consumer warpgroups of 64 rows each) in a fixed order; a producer warp
+// keeps TMA loads in flight: a work item's Q once, into one of two buffers, and the
+// K and V tiles of 64 keys through a ring of 4 shared-memory stages, each with a
+// full and an empty mbarrier. Tiles are swizzled to the row width (128 B at DH =
+// 64, 64 B at 32, 32 B at 16), as wgmma reads them. S = Q K^T is
+// wgmma.m64n64k16 with both operands in shared memory; P V is wgmma.m64nDHk16 with
+// P's three terms as the register A operand and V read MN-major (transposed). The
+// two consumer warpgroups take turns on the tensor cores (named barriers): in its
+// turn a warpgroup issues this tile's Q K^T and then the last tile's P V, hands
+// the turn over, takes the scores' maximum and exponentials while its P V runs,
+// then O's update and the split of P while the other warpgroup's products run.
+// setmaxnreg gives the producer 40 registers and the consumers 232. In mode full
+// the scale joins the exponent's FMA (ex2.approx: the SFU's exp2, exp2f's range
+// test and subnormal scaling cost 3 instructions a score). The masked kernel
+// compares each key index with the query view's bounds [qv K, (qv + 1) K),
+// computed once a work item; the cross kernel walks the other views one at a time,
+// each in 64-key tiles whose keys past the view's end (read from the next view, or
+// zero-filled past S) weigh exactly 0. Rows past a view's or the slice's end are
+// computed and not stored. No atomics: the same bits on every run. On the H100 the
+// products with the softmax's ~13 instructions a score reach ~47% of the 4-product
+// floor; the products alone ~60% (m64n64 tiles, dh = 64).
+//
+// cross_attn_fwd_lse_bf16 and the backward kernels (`fwd_tile`, `bwd_dq_tile`,
+// `bwd_dkv_tile`): FlashAttention-2 style on mma.sync.m16n8k16 (bf16 in, f32
+// accumulate). 4 warps own 64 rows, 16 each; a warp reads its A fragments from
+// shared memory with ldmatrix once per streamed tile (DH/16 k-steps). The streamed
+// operands go through shared memory in tiles of 64 rows with cp.async,
+// double-buffered, rows padded by 8 bf16 so that ldmatrix reads conflict-free; a
+// streamed operand whose rows index the product's columns (K in S = Q K^T) is read
+// with ldmatrix as the B operand, one whose rows index the sum (V in P V) with
+// ldmatrix.trans. The streamed rows of the cross kernels are the other views' as
+// one virtual range of (V-1) K rows with the own view cut out.
 //   dq (bwd_dq_tile) owns query rows: per tile of 64 keys it forms S = Q K^T and
 // dP = dO V^T (K and V both read as B operands), p = exp2(S scale log2 e -
 // lse log2 e) (no running maximum: the LSE holds it), dS = p (dP - dvec), and
@@ -77,15 +100,21 @@
 // dvec; S^T = K Q^T and dP^T = V dO^T come out with the keys as rows, so P^T and
 // dS^T are in the A-operand layout of dV += bf16(P^T) dO and dK += bf16(dS^T) Q.
 // Each block owns its outputs: no atomics, the same bits on every run.
-//   Registers: the forward holds S (32), O and the tile's accumulator (2 x DH/2),
-// Q fragments (DH/4) and the P terms, built for 3 blocks per SM (<= 168
+//   Registers: the LSE forward holds S (32), O and the tile's accumulator (2 x
+// DH/2), Q fragments (DH/4) and the P terms, built for 3 blocks per SM (<= 168
 // registers a thread); the backward holds two score tiles (2 x 32), one or two
 // output accumulators and the tile's (DH/2 each), built for 2 blocks per SM (<=
-// 255). No spills. Shared memory at DH = 64: forward Q 9 KB, K and V 2 x 2 x 9 KB:
-// 45 KB; backward two owned 9 KB groups and two double-buffered streamed
+// 255). No spills. Shared memory at DH = 64: LSE forward Q 9 KB, K and V 2 x 2 x 9
+// KB: 45 KB; backward two owned 9 KB groups and two double-buffered streamed
 // operands: 54 KB (dk/dv also 1 KB of LSE and dvec).
+//
+// The tensor maps are encoded on the host at each call (cuTensorMapEncodeTiled,
+// reached through cudaGetDriverEntryPoint, so the library links no libcuda) and
+// passed as __grid_constant__ parameters; a base address that is not 16-byte
+// aligned cannot be mapped and returns -2.
 
 #include <climits>
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -95,11 +124,11 @@ namespace {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int NW = 4;           // warps per block
-constexpr int NT = 32 * NW;     // threads per block
-constexpr int BQ = 16 * NW;     // query rows per block (16 a warp)
-constexpr int BK = 64;          // keys per tile
-constexpr int MIN_BLOCKS = 3;   // forward: blocks per SM the registers are sized for
+constexpr int NW = 4;           // mma.sync kernels: warps per block
+constexpr int NT = 32 * NW;     // mma.sync kernels: threads per block
+constexpr int BQ = 16 * NW;     // mma.sync kernels: query rows per block (16 a warp)
+constexpr int BK = 64;          // keys per tile (every kernel)
+constexpr int MIN_BLOCKS = 3;   // LSE forward: blocks per SM the registers are sized for
 constexpr int BWD_BLOCKS = 2;   // backward: blocks per SM the registers are sized for
 constexpr float kNegInf = -1e9f;
 constexpr float kLog2e = 1.4426950408889634f;
@@ -109,9 +138,9 @@ enum Mode { kFull = 0, kSelf = 1, kCross = 2 };
 
 static_assert(BQ == BK, "Q and the K/V tiles share the copy routine");
 
-// Shared-memory layout, in bf16 elements: Q (BQ rows), two K tiles, two V tiles,
-// every row DH + 8 long (16 bytes of padding: the 8 rows an ldmatrix reads fall
-// in 8 different groups of 4 banks).
+// The LSE forward's shared-memory layout, in bf16 elements: Q (BQ rows), two K
+// tiles, two V tiles, every row DH + 8 long (16 bytes of padding: the 8 rows an
+// ldmatrix reads fall in 8 different groups of 4 banks).
 template <int DH>
 struct Smem {
   static constexpr int LD = DH + 8;
@@ -230,18 +259,16 @@ __device__ __forceinline__ void split3(float x, float y, uint32_t& hi, uint32_t&
   lo = as_u32(__floats2bfloat162_rn(x, y));
 }
 
-// One block: query rows row0 .. row0 + n_live - 1 of one (batch*head) slice (q,
-// k, v, o already offset to it) against the keys of the virtual range [0, nkeys)
-// (see copy_rows), under the mask MODE over the key index (attn_fwd's modes;
-// the cross kernel passes kFull and cuts its own view out of the range). With
-// LSE, also lse[row] = m + log(l + 1e-9) in float32 (lse offset to the slice).
-template <int DH, int MODE, bool LSE>
+// One LSE-forward block: query rows row0 .. row0 + n_live - 1 of one
+// (batch*head) slice (q, k, v, o already offset to it) against the keys of the
+// virtual range [0, nkeys) (see copy_rows); also lse[row] = m + log(l + 1e-9) in
+// float32 (lse offset to the slice).
+template <int DH>
 __device__ __forceinline__ void fwd_tile(const bf16* __restrict__ q,
                                          const bf16* __restrict__ k,
                                          const bf16* __restrict__ v, bf16* __restrict__ o,
                                          float* __restrict__ lse, int row0, int n_live,
-                                         int nkeys, int gap, int gap_len, int n_kpts,
-                                         float scale) {
+                                         int nkeys, int gap, int gap_len, float scale) {
   using L = Smem<DH>;
   constexpr int LD = L::LD;
   constexpr int KS = DH / 16;  // k-steps of Q K^T
@@ -259,8 +286,6 @@ __device__ __forceinline__ void fwd_tile(const bf16* __restrict__ q,
   copy_rows<DH>(vs, v, 0, nkeys, gap, gap_len);
   cp_async_commit();
 
-  const int rv0 = MODE == kFull ? 0 : (row0 + warp * 16 + g) / n_kpts;
-  const int rv1 = MODE == kFull ? 0 : (row0 + warp * 16 + g + 8) / n_kpts;
   float acc[ND][4];
 #pragma unroll
   for (int d = 0; d < ND; ++d)
@@ -312,11 +337,6 @@ __device__ __forceinline__ void fwd_tile(const bf16* __restrict__ q,
       for (int c = 0; c < 2; ++c) {
         const int x = x0 + 8 * nb + 2 * tq + c;
         float a = s[nb][c] * scale2, b = s[nb][2 + c] * scale2;
-        if (MODE != kFull) {
-          const int kv = x / n_kpts;
-          if ((MODE == kSelf) != (rv0 == kv)) a = kNegInf * kLog2e;
-          if ((MODE == kSelf) != (rv1 == kv)) b = kNegInf * kLog2e;
-        }
         if (x0 + BK > nkeys && x >= nkeys) a = b = -INFINITY;  // past the range: weight 0
         s[nb][c] = a;
         s[nb][2 + c] = b;
@@ -404,41 +424,27 @@ __device__ __forceinline__ void fwd_tile(const bf16* __restrict__ q,
       *reinterpret_cast<__nv_bfloat162*>(o + (size_t)(row0 + r + 8) * DH + col) =
           __floats2bfloat162_rn(acc[d][2] / d1, acc[d][3] / d1);
   }
-  if (LSE && tq == 0) {  // m is in base 2: LSE = m ln 2 + log(l + 1e-9)
+  if (tq == 0) {  // m is in base 2: LSE = m ln 2 + log(l + 1e-9)
     if (r < n_live) lse[row0 + r] = m0 * kLn2 + logf(d0);
     if (r + 8 < n_live) lse[row0 + r + 8] = m1 * kLn2 + logf(d1);
   }
 }
 
-// grid (ceil(S / BQ), BH): every query attends all S keys under the mask.
-template <int DH, int MODE>
-__global__ void __launch_bounds__(NT, MIN_BLOCKS)
-attn_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                     const bf16* __restrict__ v, bf16* __restrict__ o, int S, int n_kpts,
-                     float scale) {
-  const size_t base = (size_t)blockIdx.y * S * DH;
-  const int row0 = blockIdx.x * BQ;
-  fwd_tile<DH, MODE, false>(q + base, k + base, v + base, o + base, nullptr, row0,
-                            min(BQ, S - row0), S, INT_MAX, 0, n_kpts, scale);
-}
-
 // grid (n_views * tiles, BH) with tiles = ceil(n_kpts / BQ) query tiles per view,
 // the last one ragged. The keys are the (V-1) K of the other views: the virtual
-// key x is key x, or x + K from the query's own view qv on. With LSE (lse
-// (BH, S) float32) it is cross_attn_fwd_lse_bf16.
-template <int DH, bool LSE>
+// key x is key x, or x + K from the query's own view qv on; lse is (BH, S) float32.
+template <int DH>
 __global__ void __launch_bounds__(NT, MIN_BLOCKS)
-cross_attn_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                           const bf16* __restrict__ v, bf16* __restrict__ o,
-                           float* __restrict__ lse, int S, int n_views, int n_kpts,
-                           int tiles, float scale) {
+cross_attn_fwd_lse_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                               const bf16* __restrict__ v, bf16* __restrict__ o,
+                               float* __restrict__ lse, int S, int n_views, int n_kpts,
+                               int tiles, float scale) {
   const size_t base = (size_t)blockIdx.y * S * DH;
   const int qv = blockIdx.x / tiles;
   const int r0 = (blockIdx.x % tiles) * BQ;  // first row within the view
-  fwd_tile<DH, kFull, LSE>(q + base, k + base, v + base, o + base,
-                           LSE ? lse + (size_t)blockIdx.y * S : nullptr, qv * n_kpts + r0,
-                           min(BQ, n_kpts - r0), (n_views - 1) * n_kpts, qv * n_kpts,
-                           n_kpts, n_kpts, scale);
+  fwd_tile<DH>(q + base, k + base, v + base, o + base, lse + (size_t)blockIdx.y * S,
+               qv * n_kpts + r0, min(BQ, n_kpts - r0), (n_views - 1) * n_kpts, qv * n_kpts,
+               n_kpts, scale);
 }
 
 // acc += bf16(x) B over one streamed tile: x is a warp's 16 x BK score
@@ -768,6 +774,546 @@ cross_attn_bwd_dkv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restric
                    n_kpts, scale);
 }
 
+// ---- attn_fwd_bf16 and cross_attn_fwd_bf16: TMA, wgmma, warp-specialised ----
+
+constexpr int HW_THREADS = 384;  // warpgroup 0 the producer, 1 and 2 the consumers
+constexpr int HW_ROWS = 128;     // query rows of a work item, 64 a consumer warpgroup
+constexpr int HW_STAGES = 4;     // K/V tiles of 64 keys in flight
+constexpr int PRODUCER_REGS = 40;
+constexpr int CONSUMER_REGS = 232;  // 40 x 128 + 232 x 256 <= 65536
+
+// Shared-memory layout in bytes from a 1024-aligned base: two Q buffers of two
+// 64-row halves (one a consumer warpgroup), HW_STAGES K tiles, HW_STAGES V tiles,
+// each 64 rows of 2 DH bytes swizzled to the row width, then the mbarriers.
+template <int DH>
+struct HSmem {
+  static constexpr int ROW = 2 * DH;    // bytes of a row, the swizzle span
+  static constexpr int TILE = 64 * ROW;  // a Q half, a K or a V tile
+  static constexpr int q_off = 0;
+  static constexpr int k_off = q_off + 4 * TILE;
+  static constexpr int v_off = k_off + HW_STAGES * TILE;
+  static constexpr int bar_off = v_off + HW_STAGES * TILE;
+  static constexpr int n_bars = 2 * HW_STAGES + 4;  // full, empty a stage; full, empty a Q buffer
+  static constexpr size_t bytes = 1024 + bar_off + 8 * n_bars;  // + the base's alignment
+  // wgmma descriptor: layout type (1: 128 B swizzle, 2: 64 B, 3: 32 B) and the
+  // stride between 8-row groups
+  static constexpr uint64_t layout = DH == 64 ? 1 : DH == 32 ? 2 : 3;
+  static constexpr uint32_t group = 8 * ROW;
+  static_assert(DH == 16 || DH == 32 || DH == 64, "head widths 16, 32, 64");
+  static_assert(TILE % 1024 == 0, "tiles aligned to the 128 B swizzle's 1024 B atom");
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// wgmma shared-memory descriptor of a swizzled tile at addr (16-byte units of the
+// start address, leading offset 1 (unused by these layouts), stride `group`).
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint64_t layout, uint32_t group) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
+         ((uint64_t)(group >> 4) << 32) | (layout << 62);
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// Returns once the phase of `parity` has completed (parity 1 on a fresh barrier:
+// at once). A wait past ~10 s of SM clock traps instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  long long start = 0;
+  for (;;) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (start == 0) start = clock64();
+    else if (clock64() - start > 20000000000LL) __trap();
+  }
+}
+
+// 64 rows from `row` of slice bh into the shared tile at dst, swizzled as the map
+// says (rows past S zero-filled); completes `bytes` on bar.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                         int row, int bh) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(0), "r"(row), "r"(bh)
+      : "memory");
+}
+
+// The two consumer warpgroups' turns on the tensor cores: barrier 1 + c is
+// warpgroup c's (its 128 threads sync, the other's 128 arrive).
+__device__ __forceinline__ void turn_wait(int id) {
+  asm volatile("bar.sync %0, 256;\n" ::"r"(id) : "memory");
+}
+
+__device__ __forceinline__ void turn_pass(int id) {
+  asm volatile("bar.arrive %0, 256;\n" ::"r"(id) : "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// Waits until at most N committed groups of this warpgroup's products are pending.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// 2^x on the SFU (ex2.approx.ftz: the hardware's exp2, subnormal results flushed
+// to 0; exp2f adds a range test and two multiplies a call to keep them). A
+// weight below 2^-126 of the row's largest is 0 either way in a bf16 output.
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// (lo, hi) rounded to bfloat16, packed as one A-operand register (lo in the low
+// half).
+__device__ __forceinline__ uint32_t cvt_bf16x2(float lo, float hi) {
+  uint32_t r;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n" : "=r"(r) : "f"(hi), "f"(lo));
+  return r;
+}
+
+// split3 on packed registers: each term rounds what the ones before it left,
+// the halves read back by a shift and a mask (the bf16 intrinsics' struct costs
+// byte permutes here).
+__device__ __forceinline__ void split3_bf16x2(float x, float y, uint32_t& hi, uint32_t& mid,
+                                              uint32_t& lo) {
+  hi = cvt_bf16x2(x, y);
+  x -= __uint_as_float(hi << 16);
+  y -= __uint_as_float(hi & 0xffff0000u);
+  mid = cvt_bf16x2(x, y);
+  x -= __uint_as_float(mid << 16);
+  y -= __uint_as_float(mid & 0xffff0000u);
+  lo = cvt_bf16x2(x, y);
+}
+
+// Keeps the compiler from moving reads (and writes) of r across the waits.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// d (64 x 64 f32) = [d +] A B: A (64 x 16) and B (16 x 64) both K-major in shared
+// memory (S = Q K^T: K's rows are B's columns).
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da, uint64_t db,
+                                         int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d (64 x 16 f32) = [d +] A B: A (64 x 16 bf16) from registers, B (16 x 16)
+// MN-major in shared memory (P V: V's rows are B's rows, read transposed).
+__device__ __forceinline__ void wgmma_rs(float (&d)[8], uint32_t a0, uint32_t a1,
+                                         uint32_t a2, uint32_t a3, uint64_t db,
+                                         int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(accumulate));
+}
+
+// d (64 x 32 f32) = [d +] A B: A (64 x 16 bf16) from registers, B (16 x 32)
+// MN-major in shared memory (P V: V's rows are B's rows, read transposed).
+__device__ __forceinline__ void wgmma_rs(float (&d)[16], uint32_t a0, uint32_t a1,
+                                         uint32_t a2, uint32_t a3, uint64_t db,
+                                         int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(accumulate));
+}
+
+// d (64 x 64 f32) = [d +] A B: A (64 x 16 bf16) from registers, B (16 x 64)
+// MN-major in shared memory (P V: V's rows are B's rows, read transposed).
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], uint32_t a0, uint32_t a1,
+                                         uint32_t a2, uint32_t a3, uint64_t db,
+                                         int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(accumulate));
+}
+
+// attn_fwd_bf16's walk: work items of 128 rows over all S rows of each slice
+// (item i: slice i / row_tiles); every item takes the keys [0, S) in 64-key tiles.
+struct SelfWalk {
+  int S, row_tiles, n_tiles;
+  __device__ void item(int i, int& bh, int& row0, int& n_live) const {
+    bh = i / row_tiles;
+    row0 = (i - bh * row_tiles) * HW_ROWS;
+    n_live = min(HW_ROWS, S - row0);
+  }
+  __device__ int key0(int t) const { return t * BK; }
+  __device__ int valid(int t) const { return min(BK, S - t * BK); }
+};
+
+// cross_attn_fwd_bf16's walk: work items of 128 rows inside one view qv (the
+// last of a view ragged; item i: slice i / (n_views row_tiles)); the keys of the
+// other views, one view at a time, each in view_tiles = ceil(K / 64) tiles.
+struct CrossWalk {
+  int n_views, n_kpts, row_tiles, view_tiles, n_tiles, qv;
+  __device__ void item(int i, int& bh, int& row0, int& n_live) {
+    const int per = n_views * row_tiles;
+    bh = i / per;
+    const int rest = i - bh * per;
+    qv = rest / row_tiles;
+    const int r0 = (rest - qv * row_tiles) * HW_ROWS;  // first row within the view
+    row0 = qv * n_kpts + r0;
+    n_live = min(HW_ROWS, n_kpts - r0);
+  }
+  __device__ int key0(int t) const {
+    const int vi = t / view_tiles;
+    return (vi + (vi >= qv)) * n_kpts + (t - vi * view_tiles) * BK;
+  }
+  __device__ int valid(int t) const {
+    return min(BK, n_kpts - (t - t / view_tiles * view_tiles) * BK);
+  }
+};
+
+// The Hopper forward: the work items of `walk` from blockIdx.x on, gridDim.x
+// apart, under the mask MODE over the key index (attn_fwd's modes; the cross
+// kernel passes kFull). o is (BH, S, DH); qm, km, vm map q, k, v.
+template <int DH, int MODE, typename Walk>
+__device__ __forceinline__ void hopper_fwd(const CUtensorMap* qm, const CUtensorMap* km,
+                                           const CUtensorMap* vm, bf16* __restrict__ o,
+                                           Walk walk, int S, int n_kpts, float scale,
+                                           int n_items) {
+  using L = HSmem<DH>;
+  constexpr int R = DH / 2;  // accumulator registers of a 64 x DH tile
+  extern __shared__ __align__(16) unsigned char hw_smem[];
+  const uint32_t base = (smem_u32(hw_smem) + 1023u) & ~1023u;
+  // mbarriers: full and empty of each stage, full and empty of each Q buffer
+  const uint32_t full0 = base + L::bar_off, empty0 = full0 + 8 * HW_STAGES;
+  const uint32_t qfull0 = empty0 + 8 * HW_STAGES, qempty0 = qfull0 + 16;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < HW_STAGES; ++s) {
+      mbar_init(full0 + 8 * s, 1);    // the producer's arrival and the tile's bytes
+      mbar_init(empty0 + 8 * s, 8);   // every consumer warp, done with the tile
+    }
+    for (int b = 0; b < 2; ++b) {
+      mbar_init(qfull0 + 8 * b, 1);
+      mbar_init(qempty0 + 8 * b, 8);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  const int wg = threadIdx.x / 128;
+
+  if (wg == 0) {  // the producer: one thread issues every load
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
+    if (threadIdx.x != 0) return;
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int i = blockIdx.x, u = 0; i < n_items; i += gridDim.x, ++u) {
+      int bh, row0, n_live;
+      walk.item(i, bh, row0, n_live);
+      const int qb = u & 1;  // Q buffer; its (u / 2)-th use waits for the one before
+      mbar_wait(qempty0 + 8 * qb, ((u >> 1) & 1) ^ 1);
+      mbar_expect_tx(qfull0 + 8 * qb, 2 * L::TILE);
+      tma_load(base + L::q_off + 2 * qb * L::TILE, qm, qfull0 + 8 * qb, row0, bh);
+      tma_load(base + L::q_off + (2 * qb + 1) * L::TILE, qm, qfull0 + 8 * qb, row0 + 64, bh);
+      for (int t = 0; t < walk.n_tiles; ++t) {
+        const int key0 = walk.key0(t);
+        mbar_wait(empty0 + 8 * stage, phase ^ 1);
+        mbar_expect_tx(full0 + 8 * stage, 2 * L::TILE);
+        tma_load(base + L::k_off + stage * L::TILE, km, full0 + 8 * stage, key0, bh);
+        tma_load(base + L::v_off + stage * L::TILE, vm, full0 + 8 * stage, key0, bh);
+        if (++stage == HW_STAGES) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+    }
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
+  const int c = wg - 1;  // consumer c owns rows 64 c .. 64 c + 63 of a work item
+  const int tid = threadIdx.x - 128 * wg;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, tq = lane & 3;  // rows g, g + 8 of the warp's 16; columns 2 tq + {0, 1}
+  const int r = 64 * c + 16 * warp + g;    // this thread's rows r and r + 8 of an item
+  const float scale2 = scale * kLog2e;     // scores in base 2
+  float s[32], to[R], acc[R];              // scores; the pending tile's P V; O
+  uint32_t ph[16], pm[16], pl[16];         // P's three terms, the A operand of P V
+#pragma unroll
+  for (int e = 0; e < 32; ++e) s[e] = 0.f;
+#pragma unroll
+  for (int e = 0; e < R; ++e) to[e] = 0.f;
+  int stage = 0, rstage = 0;  // the tile for the next S; the tile whose P V is pending
+  uint32_t phase = 0;
+  if (c == 1) turn_pass(1);  // consumer 0 takes the first turn
+
+  for (int i = blockIdx.x, u = 0; i < n_items; i += gridDim.x, ++u) {
+    int bh, row0, n_live;
+    walk.item(i, bh, row0, n_live);
+    const int qb = u & 1;
+    const uint64_t qd = smem_desc(base + L::q_off + (2 * qb + c) * L::TILE, L::layout, L::group);
+    int lo0 = 0, lo1 = 0;  // masked modes: the first keys of rows r's and r + 8's views
+    if (MODE != kFull) {
+      lo0 = (row0 + r) / n_kpts * n_kpts;
+      lo1 = (row0 + r + 8) / n_kpts * n_kpts;
+    }
+    float m0 = kNegInf * kLog2e, m1 = kNegInf * kLog2e, l0 = 0.f, l1 = 0.f;
+    float al0 = 1.f, al1 = 1.f, pal0 = 1.f, pal1 = 1.f;  // alpha of the new, the pending tile
+#pragma unroll
+    for (int e = 0; e < R; ++e) acc[e] = 0.f;
+
+    // P V of the pending tile into `to` from 0: 16 keys a k-step (two 8-row
+    // groups of V), the three terms of P one after the other
+    auto issue_pv = [&]() {
+      const uint64_t vd = smem_desc(base + L::v_off + rstage * L::TILE, L::layout, L::group);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const uint64_t d = vd + ((2 * L::group * j) >> 4);
+        wgmma_rs(to, ph[4 * j], ph[4 * j + 1], ph[4 * j + 2], ph[4 * j + 3], d, j > 0);
+        wgmma_rs(to, pm[4 * j], pm[4 * j + 1], pm[4 * j + 2], pm[4 * j + 3], d, 1);
+        wgmma_rs(to, pl[4 * j], pl[4 * j + 1], pl[4 * j + 2], pl[4 * j + 3], d, 1);
+      }
+    };
+    // S = Q K^T of the tile in `stage`: DH / 16 k-steps of 32 bytes along the rows
+    auto issue_s = [&]() {
+      const uint64_t kd = smem_desc(base + L::k_off + stage * L::TILE, L::layout, L::group);
+#pragma unroll
+      for (int kk = 0; kk < DH / 16; ++kk) wgmma_ss(s, qd + 2 * kk, kd + 2 * kk, kk > 0);
+    };
+    // O = O alpha + the pending tile's P V, in float32, alpha of the pending tile
+    auto update_o = [&]() {
+#pragma unroll
+      for (int d = 0; d < DH / 8; ++d) {
+        acc[4 * d] = fmaf(acc[4 * d], pal0, to[4 * d]);
+        acc[4 * d + 1] = fmaf(acc[4 * d + 1], pal0, to[4 * d + 1]);
+        acc[4 * d + 2] = fmaf(acc[4 * d + 2], pal1, to[4 * d + 2]);
+        acc[4 * d + 3] = fmaf(acc[4 * d + 3], pal1, to[4 * d + 3]);
+      }
+    };
+    // online softmax over tile t's scores in place (rows r: elements 0, 1 of
+    // each 8-key block; r + 8: 2, 3): s <- exp2(s scale log2 e - m), alpha, l.
+    // Mode full folds the scale into the exponent's FMA (the row maximum of the
+    // raw scores times the scale is the maximum of the scaled ones); the masked
+    // modes scale first and fill -1e9 (base 2), as the Pallas body does.
+    auto scores = [&](int t) {
+      const int valid = walk.valid(t);
+      float c2 = scale2;  // the factor still to apply to s
+      if (MODE != kFull) {
+        const int key0 = walk.key0(t);
+#pragma unroll
+        for (int nb = 0; nb < 8; ++nb) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int x = key0 + 8 * nb + 2 * tq + e;
+            float a = s[4 * nb + e] * scale2, b = s[4 * nb + 2 + e] * scale2;
+            if ((MODE == kSelf) != (x >= lo0 && x < lo0 + n_kpts)) a = kNegInf * kLog2e;
+            if ((MODE == kSelf) != (x >= lo1 && x < lo1 + n_kpts)) b = kNegInf * kLog2e;
+            s[4 * nb + e] = a;
+            s[4 * nb + 2 + e] = b;
+          }
+        }
+        c2 = 1.f;
+      }
+      if (valid < BK) {  // a ragged tile: keys past the range or the view weigh 0
+#pragma unroll
+        for (int nb = 0; nb < 8; ++nb)
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            if (8 * nb + 2 * tq + e >= valid) s[4 * nb + e] = s[4 * nb + 2 + e] = -INFINITY;
+      }
+      float mx0 = s[0], mx1 = s[2];
+#pragma unroll
+      for (int nb = 0; nb < 8; ++nb) {
+        mx0 = fmaxf(mx0, fmaxf(s[4 * nb], s[4 * nb + 1]));
+        mx1 = fmaxf(mx1, fmaxf(s[4 * nb + 2], s[4 * nb + 3]));
+      }
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+      const float mn0 = fmaxf(m0, mx0 * c2), mn1 = fmaxf(m1, mx1 * c2);
+      al0 = ex2(m0 - mn0);
+      al1 = ex2(m1 - mn1);
+      m0 = mn0;
+      m1 = mn1;
+      float ps0 = 0.f, ps1 = 0.f;
+#pragma unroll
+      for (int nb = 0; nb < 8; ++nb) {
+        s[4 * nb] = ex2(fmaf(s[4 * nb], c2, -mn0));
+        s[4 * nb + 1] = ex2(fmaf(s[4 * nb + 1], c2, -mn0));
+        s[4 * nb + 2] = ex2(fmaf(s[4 * nb + 2], c2, -mn1));
+        s[4 * nb + 3] = ex2(fmaf(s[4 * nb + 3], c2, -mn1));
+        ps0 += s[4 * nb] + s[4 * nb + 1];
+        ps1 += s[4 * nb + 2] + s[4 * nb + 3];
+      }
+      l0 = l0 * al0 + ps0;
+      l1 = l1 * al1 + ps1;
+    };
+    // P's three terms in the A layout of P V (k-step j: key blocks 2j and
+    // 2j + 1); the tile is pending from here on
+    auto split_p = [&]() {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        split3_bf16x2(s[8 * j], s[8 * j + 1], ph[4 * j], pm[4 * j], pl[4 * j]);
+        split3_bf16x2(s[8 * j + 2], s[8 * j + 3], ph[4 * j + 1], pm[4 * j + 1], pl[4 * j + 1]);
+        split3_bf16x2(s[8 * j + 4], s[8 * j + 5], ph[4 * j + 2], pm[4 * j + 2], pl[4 * j + 2]);
+        split3_bf16x2(s[8 * j + 6], s[8 * j + 7], ph[4 * j + 3], pm[4 * j + 3], pl[4 * j + 3]);
+      }
+      pal0 = al0;
+      pal1 = al1;
+      rstage = stage;
+      if (++stage == HW_STAGES) {
+        stage = 0;
+        phase ^= 1;
+      }
+    };
+
+    // Each turn: wait for the tile, take the turn, issue this warpgroup's
+    // products (S of the new tile, then P V of the pending one), pass the turn.
+    // The new scores' exponentials run under the pending P V, the rest of the
+    // softmax under the other warpgroup's products.
+    const int n = walk.n_tiles;
+    mbar_wait(qfull0 + 8 * qb, (u >> 1) & 1);
+    mbar_wait(full0 + 8 * stage, phase);
+    turn_wait(1 + c);
+    wgmma_fence();
+    issue_s();
+    wgmma_commit();
+    turn_pass(2 - c);
+    wgmma_wait<0>();
+    fence_regs(s);
+    if (n == 1 && lane == 0) mbar_arrive(qempty0 + 8 * qb);  // the item's last S is done
+    scores(0);
+    split_p();
+    for (int t = 1; t < n; ++t) {
+      mbar_wait(full0 + 8 * stage, phase);
+      turn_wait(1 + c);
+      wgmma_fence();
+      issue_s();
+      wgmma_commit();
+      issue_pv();
+      wgmma_commit();
+      turn_pass(2 - c);
+      wgmma_wait<1>();  // S of tile t
+      fence_regs(s);
+      if (t == n - 1 && lane == 0) mbar_arrive(qempty0 + 8 * qb);
+      scores(t);
+      fence_regs(s);
+      wgmma_wait<0>();  // P V of tile t - 1
+      fence_regs(s);
+      fence_regs(to);
+      if (lane == 0) mbar_arrive(empty0 + 8 * rstage);
+      update_o();
+      split_p();
+    }
+    turn_wait(1 + c);
+    wgmma_fence();
+    issue_pv();
+    wgmma_commit();
+    turn_pass(2 - c);
+    wgmma_wait<0>();
+    fence_regs(to);
+    if (lane == 0) mbar_arrive(empty0 + 8 * rstage);
+    update_o();
+
+    l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+    l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+    const float d0 = l0 + 1e-9f, d1 = l1 + 1e-9f;
+    bf16* ob = o + ((size_t)bh * S + row0) * DH;
+#pragma unroll
+    for (int d = 0; d < DH / 8; ++d) {
+      const int col = 8 * d + 2 * tq;
+      if (r < n_live)
+        *reinterpret_cast<__nv_bfloat162*>(ob + (size_t)r * DH + col) =
+            __floats2bfloat162_rn(acc[4 * d] / d0, acc[4 * d + 1] / d0);
+      if (r + 8 < n_live)
+        *reinterpret_cast<__nv_bfloat162*>(ob + (size_t)(r + 8) * DH + col) =
+            __floats2bfloat162_rn(acc[4 * d + 2] / d1, acc[4 * d + 3] / d1);
+    }
+  }
+  if (c == 0) turn_wait(1);  // the turn consumer 1 passed after its last products
+}
+
+// Persistent grid of min(n_items, SMs) blocks of HW_THREADS: the BH ceil(S / 128)
+// work items of SelfWalk; every query attends all S keys under the mask.
+template <int DH, int MODE>
+__global__ void __launch_bounds__(HW_THREADS, 1)
+attn_fwd_bf16_kernel(const __grid_constant__ CUtensorMap qm,
+                     const __grid_constant__ CUtensorMap km,
+                     const __grid_constant__ CUtensorMap vm, bf16* __restrict__ o, int S,
+                     int n_kpts, float scale, int n_items) {
+  const SelfWalk walk{S, (S + HW_ROWS - 1) / HW_ROWS, (S + BK - 1) / BK};
+  hopper_fwd<DH, MODE>(&qm, &km, &vm, o, walk, S, n_kpts, scale, n_items);
+}
+
+// Persistent grid as above: the BH n_views ceil(K / 128) work items of
+// CrossWalk; a query attends the (V-1) K keys of the other views.
+template <int DH>
+__global__ void __launch_bounds__(HW_THREADS, 1)
+cross_attn_fwd_bf16_kernel(const __grid_constant__ CUtensorMap qm,
+                           const __grid_constant__ CUtensorMap km,
+                           const __grid_constant__ CUtensorMap vm, bf16* __restrict__ o,
+                           int S, int n_views, int n_kpts, float scale, int n_items) {
+  const int view_tiles = (n_kpts + BK - 1) / BK;
+  const CrossWalk walk{n_views, n_kpts, (n_kpts + HW_ROWS - 1) / HW_ROWS, view_tiles,
+                       (n_views - 1) * view_tiles, 0};
+  hopper_fwd<DH, kFull>(&qm, &km, &vm, o, walk, S, n_kpts, scale, n_items);
+}
+
 // Above 48 KB a block's shared memory is dynamic only; the carveout asks for the
 // SM's whole 228 KB, so that as many blocks fit as the registers allow.
 template <typename F>
@@ -777,42 +1323,106 @@ void prepare_smem(F* kernel, size_t bytes) {
                        (int)cudaSharedmemCarveoutMaxShared);
 }
 
+// SMs of the current device: the persistent grids' size.
+int sm_count() {
+  int dev = 0, n = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+  return n;
+}
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the libcuda the runtime has loaded (no -lcuda).
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t rc = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                            cudaEnableDefault, &found);
+#else
+    const cudaError_t rc =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (rc == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// The TMA map of a (BH, S, DH) bfloat16 tensor at ptr, read in boxes of 64 rows of
+// one slice, swizzled to the row width (2 DH bytes); rows past S read as zeros.
+// False where it cannot be made (a base address not 16-byte aligned).
+bool make_map(CUtensorMap* map, const void* ptr, int BH, int S, int DH) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr || reinterpret_cast<uintptr_t>(ptr) % 16) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)DH, (cuuint64_t)S, (cuuint64_t)BH};
+  const cuuint64_t strides[2] = {(cuuint64_t)DH * 2, (cuuint64_t)S * DH * 2};  // bytes
+  const cuuint32_t box[3] = {(cuuint32_t)DH, 64, 1};
+  const cuuint32_t steps[3] = {1, 1, 1};
+  const CUtensorMapSwizzle swizzle = DH == 64   ? CU_TENSOR_MAP_SWIZZLE_128B
+                                     : DH == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                                : CU_TENSOR_MAP_SWIZZLE_32B;
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims,
+                strides, box, steps, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+bool make_maps(CUtensorMap (&maps)[3], const void* q, const void* k, const void* v, int BH,
+               int S, int DH) {
+  return make_map(&maps[0], q, BH, S, DH) && make_map(&maps[1], k, BH, S, DH) &&
+         make_map(&maps[2], v, BH, S, DH);
+}
+
 template <int DH, int MODE>
-void launch_attn_mode(const bf16* q, const bf16* k, const bf16* v, bf16* o, int BH, int S,
-                      int n_kpts, float scale, cudaStream_t st) {
-  constexpr size_t bytes = Smem<DH>::bytes;
+int launch_attn_mode(const void* q, const void* k, const void* v, bf16* o, int BH, int S,
+                     int n_kpts, float scale, cudaStream_t st) {
+  CUtensorMap maps[3];
+  if (!make_maps(maps, q, k, v, BH, S, DH)) return -2;
+  constexpr size_t bytes = HSmem<DH>::bytes;
   prepare_smem(attn_fwd_bf16_kernel<DH, MODE>, bytes);
-  const dim3 grid((S + BQ - 1) / BQ, BH);
-  attn_fwd_bf16_kernel<DH, MODE><<<grid, NT, bytes, st>>>(q, k, v, o, S, n_kpts, scale);
+  const int items = BH * ((S + HW_ROWS - 1) / HW_ROWS);
+  attn_fwd_bf16_kernel<DH, MODE><<<min(items, sm_count()), HW_THREADS, bytes, st>>>(
+      maps[0], maps[1], maps[2], o, S, n_kpts, scale, items);
+  return 0;
 }
 
 template <int DH>
-void launch_attn(const bf16* q, const bf16* k, const bf16* v, bf16* o, int BH, int S,
-                 int n_kpts, int mode, float scale, cudaStream_t st) {
-  if (mode == kFull)
-    launch_attn_mode<DH, kFull>(q, k, v, o, BH, S, n_kpts, scale, st);
-  else if (mode == kSelf)
-    launch_attn_mode<DH, kSelf>(q, k, v, o, BH, S, n_kpts, scale, st);
-  else
-    launch_attn_mode<DH, kCross>(q, k, v, o, BH, S, n_kpts, scale, st);
+int launch_attn(const void* q, const void* k, const void* v, bf16* o, int BH, int S,
+                int n_kpts, int mode, float scale, cudaStream_t st) {
+  if (mode == kFull) return launch_attn_mode<DH, kFull>(q, k, v, o, BH, S, n_kpts, scale, st);
+  if (mode == kSelf) return launch_attn_mode<DH, kSelf>(q, k, v, o, BH, S, n_kpts, scale, st);
+  return launch_attn_mode<DH, kCross>(q, k, v, o, BH, S, n_kpts, scale, st);
 }
 
-// lse == nullptr: cross_attn_fwd_bf16; else cross_attn_fwd_lse_bf16.
+// lse == nullptr: cross_attn_fwd_bf16 (the Hopper kernel); else
+// cross_attn_fwd_lse_bf16 (the mma.sync kernel).
 template <int DH>
-void launch_cross(const bf16* q, const bf16* k, const bf16* v, bf16* o, float* lse, int BH,
-                  int S, int n_views, int n_kpts, float scale, cudaStream_t st) {
+int launch_cross(const void* q, const void* k, const void* v, bf16* o, float* lse, int BH,
+                 int S, int n_views, int n_kpts, float scale, cudaStream_t st) {
+  if (lse == nullptr) {
+    CUtensorMap maps[3];
+    if (!make_maps(maps, q, k, v, BH, S, DH)) return -2;
+    constexpr size_t bytes = HSmem<DH>::bytes;
+    prepare_smem(cross_attn_fwd_bf16_kernel<DH>, bytes);
+    const int items = BH * n_views * ((n_kpts + HW_ROWS - 1) / HW_ROWS);
+    cross_attn_fwd_bf16_kernel<DH><<<min(items, sm_count()), HW_THREADS, bytes, st>>>(
+        maps[0], maps[1], maps[2], o, S, n_views, n_kpts, scale, items);
+    return 0;
+  }
   constexpr size_t bytes = Smem<DH>::bytes;
   const int tiles = (n_kpts + BQ - 1) / BQ;
-  const dim3 grid(n_views * tiles, BH);
-  if (lse == nullptr) {
-    prepare_smem(cross_attn_fwd_bf16_kernel<DH, false>, bytes);
-    cross_attn_fwd_bf16_kernel<DH, false><<<grid, NT, bytes, st>>>(
-        q, k, v, o, nullptr, S, n_views, n_kpts, tiles, scale);
-  } else {
-    prepare_smem(cross_attn_fwd_bf16_kernel<DH, true>, bytes);
-    cross_attn_fwd_bf16_kernel<DH, true><<<grid, NT, bytes, st>>>(
-        q, k, v, o, lse, S, n_views, n_kpts, tiles, scale);
-  }
+  prepare_smem(cross_attn_fwd_lse_bf16_kernel<DH>, bytes);
+  cross_attn_fwd_lse_bf16_kernel<DH><<<dim3(n_views * tiles, BH), NT, bytes, st>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      o, lse, S, n_views, n_kpts, tiles, scale);
+  return 0;
 }
 
 // dk == nullptr: the dq kernel (into dq); else the dk/dv kernel (into dk, dv).
@@ -836,39 +1446,44 @@ void launch_bwd(const bf16* q, const bf16* k, const bf16* v, const bf16* dout,
 }
 
 // {blocks per SM, registers, local (spill) bytes per thread, dynamic shared
-// bytes, rows per block (query rows; key rows for dk/dv)} of one kernel, as the
-// runtime sees it.
+// bytes, rows a block owns (query rows of a work item; key rows for dk/dv),
+// threads per block, 1 for a persistent grid} of one kernel, as the runtime sees
+// it at its own block size.
 template <typename F>
-int kernel_info(F* kernel, size_t bytes, int* info) {
+int kernel_info(F* kernel, size_t bytes, int threads, int rows, int persistent, int* info) {
   prepare_smem(kernel, bytes);
   cudaFuncAttributes a;
   int blocks = 0;
   if (cudaFuncGetAttributes(&a, kernel) != cudaSuccess ||
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, NT, bytes) !=
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, threads, bytes) !=
           cudaSuccess)
     return (int)cudaGetLastError();
   info[0] = blocks;
   info[1] = a.numRegs;
   info[2] = (int)a.localSizeBytes;
   info[3] = (int)bytes;
-  info[4] = BQ;
+  info[4] = rows;
+  info[5] = threads;
+  info[6] = persistent;
   return 0;
 }
 
 template <int DH>
 int kernel_info_dh(int which, int* info) {
-  constexpr size_t bytes = Smem<DH>::bytes;
+  constexpr size_t hw = HSmem<DH>::bytes;
   switch (which) {
-    case 0: return kernel_info(attn_fwd_bf16_kernel<DH, kFull>, bytes, info);
-    case 1: return kernel_info(attn_fwd_bf16_kernel<DH, kSelf>, bytes, info);
-    case 2: return kernel_info(attn_fwd_bf16_kernel<DH, kCross>, bytes, info);
-    case 3: return kernel_info(cross_attn_fwd_bf16_kernel<DH, false>, bytes, info);
-    case 4: return kernel_info(cross_attn_fwd_bf16_kernel<DH, true>, bytes, info);
+    case 0: return kernel_info(attn_fwd_bf16_kernel<DH, kFull>, hw, HW_THREADS, HW_ROWS, 1, info);
+    case 1: return kernel_info(attn_fwd_bf16_kernel<DH, kSelf>, hw, HW_THREADS, HW_ROWS, 1, info);
+    case 2: return kernel_info(attn_fwd_bf16_kernel<DH, kCross>, hw, HW_THREADS, HW_ROWS, 1, info);
+    case 3: return kernel_info(cross_attn_fwd_bf16_kernel<DH>, hw, HW_THREADS, HW_ROWS, 1, info);
+    case 4:
+      return kernel_info(cross_attn_fwd_lse_bf16_kernel<DH>, Smem<DH>::bytes, NT, BQ, 0, info);
     case 5:
-      return kernel_info(cross_attn_bwd_dq_bf16_kernel<DH>, BwdSmem<DH>::bytes, info);
-    case 6:
-      return kernel_info(cross_attn_bwd_dkv_bf16_kernel<DH>, BwdSmem<DH>::bytes_scalars,
+      return kernel_info(cross_attn_bwd_dq_bf16_kernel<DH>, BwdSmem<DH>::bytes, NT, BQ, 0,
                          info);
+    case 6:
+      return kernel_info(cross_attn_bwd_dkv_bf16_kernel<DH>, BwdSmem<DH>::bytes_scalars, NT, BQ,
+                         0, info);
     default: return -1;
   }
 }
@@ -877,21 +1492,19 @@ bool cross_shape_ok(int BH, int S, int n_views, int n_kpts) {
   return BH >= 1 && BH <= 65535 && n_views >= 2 && n_kpts >= 1 && S == n_views * n_kpts;
 }
 
-int cross_fwd(const void* q, const void* k, const void* v, void* o, float* lse,
-                     int BH, int S, int dh, int n_views, int n_kpts, float scale,
-                     void* stream) {
+int cross_fwd(const void* q, const void* k, const void* v, void* o, float* lse, int BH, int S,
+              int dh, int n_views, int n_kpts, float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (!cross_shape_ok(BH, S, n_views, n_kpts)) return -1;
-  const bf16 *qb = static_cast<const bf16*>(q), *kb = static_cast<const bf16*>(k),
-             *vb = static_cast<const bf16*>(v);
   bf16* ob = static_cast<bf16*>(o);
+  int rc;
   switch (dh) {
-    case 16: launch_cross<16>(qb, kb, vb, ob, lse, BH, S, n_views, n_kpts, scale, st); break;
-    case 32: launch_cross<32>(qb, kb, vb, ob, lse, BH, S, n_views, n_kpts, scale, st); break;
-    case 64: launch_cross<64>(qb, kb, vb, ob, lse, BH, S, n_views, n_kpts, scale, st); break;
+    case 16: rc = launch_cross<16>(q, k, v, ob, lse, BH, S, n_views, n_kpts, scale, st); break;
+    case 32: rc = launch_cross<32>(q, k, v, ob, lse, BH, S, n_views, n_kpts, scale, st); break;
+    case 64: rc = launch_cross<64>(q, k, v, ob, lse, BH, S, n_views, n_kpts, scale, st); break;
     default: return -1;
   }
-  return (int)cudaGetLastError();
+  return rc != 0 ? rc : (int)cudaGetLastError();
 }
 
 int cross_bwd(const void* q, const void* k, const void* v, const void* dout,
@@ -917,22 +1530,22 @@ int cross_bwd(const void* q, const void* k, const void* v, const void* dout,
 
 extern "C" {
 
-// Each returns 0 on success, -1 for an unsupported head width, mode or shape,
-// otherwise the cudaGetLastError() code of the launch.
+// Each returns 0 on success, -1 for an unsupported head width, mode or shape, -2
+// where a TMA map cannot be made (attn_fwd_bf16, cross_attn_fwd_bf16), otherwise
+// the cudaGetLastError() code of the launch.
 int attn_fwd_bf16(const void* q, const void* k, const void* v, void* o, int BH, int S,
                   int dh, int n_kpts, int mode, float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (mode < 0 || mode > 2 || BH < 1 || BH > 65535 || S < 1 || n_kpts < 1) return -1;
-  const bf16 *qb = static_cast<const bf16*>(q), *kb = static_cast<const bf16*>(k),
-             *vb = static_cast<const bf16*>(v);
   bf16* ob = static_cast<bf16*>(o);
+  int rc;
   switch (dh) {
-    case 16: launch_attn<16>(qb, kb, vb, ob, BH, S, n_kpts, mode, scale, st); break;
-    case 32: launch_attn<32>(qb, kb, vb, ob, BH, S, n_kpts, mode, scale, st); break;
-    case 64: launch_attn<64>(qb, kb, vb, ob, BH, S, n_kpts, mode, scale, st); break;
+    case 16: rc = launch_attn<16>(q, k, v, ob, BH, S, n_kpts, mode, scale, st); break;
+    case 32: rc = launch_attn<32>(q, k, v, ob, BH, S, n_kpts, mode, scale, st); break;
+    case 64: rc = launch_attn<64>(q, k, v, ob, BH, S, n_kpts, mode, scale, st); break;
     default: return -1;
   }
-  return (int)cudaGetLastError();
+  return rc != 0 ? rc : (int)cudaGetLastError();
 }
 
 int cross_attn_fwd_bf16(const void* q, const void* k, const void* v, void* o, int BH,
@@ -966,8 +1579,8 @@ int cross_attn_bwd_dkv_bf16(const void* q, const void* k, const void* v, const v
 
 // Occupancy of a kernel: which = 0, 1, 2 for attn_fwd_bf16 in modes full, self,
 // cross; 3 cross_attn_fwd_bf16; 4 cross_attn_fwd_lse_bf16; 5
-// cross_attn_bwd_dq_bf16; 6 cross_attn_bwd_dkv_bf16. Fills info[5] (see kernel_info) and returns 0,
-// or -1 for an unsupported head width or kernel.
+// cross_attn_bwd_dq_bf16; 6 cross_attn_bwd_dkv_bf16. Fills info[7] (see
+// kernel_info) and returns 0, or -1 for an unsupported head width or kernel.
 int attn_bf16_kernel_info(int dh, int which, int* info) {
   switch (dh) {
     case 16: return kernel_info_dh<16>(which, info);

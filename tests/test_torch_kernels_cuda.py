@@ -8,7 +8,9 @@ tensors) at the same shapes, the cross-attention kernels of the training path
 (the forward with the LSE stash, dq and dk/dv) against their plain PyTorch
 versions, and the autograd function that joins them, in float32 and bfloat16.
 
-Every test is marked `cuda` and skips without a GPU. The file imports neither
+Every test is marked `cuda` and skips without a GPU, except `TestHopperPlan`,
+which holds the launch plan and the walk of the Hopper forward kernels
+(`attn_fwd_bf16`, `cross_attn_fwd_bf16`) on the CPU. The file imports neither
 JAX nor the JAX package, so it also runs on a machine that has only PyTorch
 and the CUDA toolkit:
 
@@ -33,6 +35,9 @@ def cuda():
 # lanes; S = V * n_kpts below one tile takes BH = 1
 FWD_SHAPES = [(V, K, dh) for K in (1, 15, 16, 17, 63, 65, 200, 400)
               for V in (2, 5) for dh in (16, 32, 64)]
+# the Hopper forward kernels' edges: 64-key tiles, 128-row work items
+HOPPER_EDGE_SHAPES = [(V, K, dh) for K in (127, 128, 129, 255, 1024)
+                      for V in (2, 5) for dh in (16, 32, 64)]
 
 
 def _fwd_inputs(cuda, V, K, dh):
@@ -90,7 +95,7 @@ class TestForwardKernels:
 @pytest.mark.cuda
 class TestBf16ForwardKernels:
     """The bfloat16 tensor-core forward kernels (`attn_fwd` in its three modes,
-    `cross_attn_fwd`; route: nvcc-built CUDA C++, sm_90a, mma.sync bf16) against
+    `cross_attn_fwd`; route: nvcc-built CUDA C++, sm_90a, TMA and wgmma) against
     their plain version, `plain_view_attention` on the same bfloat16 tensors
     (float32 arithmetic on the upcast inputs, the output rounded once): every
     element within one bfloat16 ulp of the reference + 1e-6 + 2^-18 of its
@@ -128,15 +133,68 @@ class TestBf16ForwardKernels:
         assert ac.launches["cross_attn_fwd_bf16"] == before["cross_attn_fwd_bf16"] + 2
         assert ac.launches["cross_attn_fwd"] == before["cross_attn_fwd"]
 
+    @pytest.mark.parametrize("V,K,dh", HOPPER_EDGE_SHAPES)
+    def test_hopper_fwd_kernels_at_tile_edges(self, cuda, V, K, dh):
+        """Both Hopper kernels where their tiles end: K around the 64-key tiles
+        and the 128-row work items, in all three masks of `attn_fwd` and in the
+        cross kernel; the one-ulp gate and the same bits on two runs."""
+        q, k, v = (x.bfloat16() for x in _fwd_inputs(cuda, V, K, dh))
+        s = 1.0 / dh ** 0.5
+        refs = {mode: (ac.plain_view_attention(q, k, v, 1, V, K, mode),
+                       ac.plain_view_attention(q.float(), k.float(), v.float().abs(), 1, V,
+                                               K, mode))
+                for mode in ("full", "self", "cross")}
+        for mode, (ref, scale) in refs.items():
+            o = ac.attn_fwd(q, k, v, K, mode, s)
+            assert ac.bf16_ulp_error(o, ref, scale) <= 1.0, mode
+            assert torch.equal(o, ac.attn_fwd(q, k, v, K, mode, s)), mode
+        o = ac.cross_attn_fwd(q, k, v, V, K, s)
+        assert ac.bf16_ulp_error(o, *refs["cross"]) <= 1.0
+        assert torch.equal(o, ac.cross_attn_fwd(q, k, v, V, K, s))
+
+    def test_hopper_fwd_same_bits_at_the_eval_shapes(self, cuda):
+        """Two runs of each Hopper kernel at the eval shapes (160 x 1024 x 64
+        self, 32 x 5120 x 64 cross) give the same bits: a persistent block
+        walks its work items in a fixed order, no atomics."""
+        g = torch.Generator(device=cuda).manual_seed(5)
+        for BH, V, K in ((160, 1, 1024), (32, 5, 1024)):
+            q, k, v = (torch.randn(BH, V * K, 64, generator=g, device=cuda).bfloat16()
+                       for _ in range(3))
+            if V == 1:
+                runs = [ac.attn_fwd(q, k, v, K, "full", 0.125) for _ in range(2)]
+            else:
+                runs = [ac.cross_attn_fwd(q, k, v, V, K, 0.125) for _ in range(2)]
+            assert torch.equal(*runs), (BH, V, K)
+
+    def test_misaligned_operand_raises(self, cuda):
+        """A TMA map takes only a 16-byte aligned base: an operand at an offset
+        of 2 bytes raises before any launch, and nothing runs in its place."""
+        x = torch.zeros(2 * 48 * 16 + 1, device=cuda, dtype=torch.bfloat16)
+        odd = x[1:].view(2, 48, 16)
+        ok = torch.zeros(2, 48, 16, device=cuda, dtype=torch.bfloat16)
+        before = dict(ac.launches)
+        for qkv in ((odd, ok, ok), (ok, odd, ok), (ok, ok, odd)):
+            with pytest.raises(ValueError):
+                ac.attn_fwd(*qkv, 16, "full", 0.25)
+            with pytest.raises(ValueError):
+                ac.cross_attn_fwd(*qkv, 3, 16, 0.25)
+        assert ac.launches == before
+
     @pytest.mark.parametrize("dh", (16, 32, 64))
     def test_bf16_forward_kernels_do_not_spill(self, cuda, dh):
-        """Local memory 0 (no spills) and at least 2 blocks per SM, from the
-        CUDA runtime's view of each bfloat16 forward kernel."""
+        """Local memory 0 (no spills), from the CUDA runtime's view of each
+        bfloat16 forward kernel, asked at the kernel's own block size: the
+        Hopper kernels one persistent block of 384 threads (12 warps) an SM,
+        with the shared bytes and rows of `hopper_fwd_plan`."""
         for name, mode in (("attn_fwd_bf16", "full"), ("attn_fwd_bf16", "self"),
                            ("attn_fwd_bf16", "cross"), ("cross_attn_fwd_bf16", "cross")):
             info = ac.kernel_info(name, dh, mode)
+            plan = ac.hopper_fwd_plan(name, 1, 2 * 64, dh, 2, 64)
             assert info["local_bytes"] == 0, (name, mode, info)
-            assert info["blocks_per_sm"] >= 2, (name, mode, info)
+            assert info["persistent"] and info["blocks_per_sm"] >= 1, (name, mode, info)
+            assert info["blocks_per_sm"] * info["threads"] >= 384, (name, mode, info)
+            for key in ("threads", "tile_rows", "shared_bytes"):
+                assert info[key] == plan[key], (name, mode, key, info, plan)
 
     def test_bf16_forward_launches(self, cuda):
         """`fused_view_attention` on bfloat16 CUDA tensors without grad launches
@@ -179,8 +237,8 @@ class TestBf16TrainingKernels:
     """The bfloat16 tensor-core kernels of the training path (route: nvcc-built
     CUDA C++, sm_90a, mma.sync bf16): `cross_attn_fwd_lse` on bfloat16 q, k, v
     against `cross_attn_fwd_lse_plain` (the output within the forward's
-    one-ulp gate, bit for bit the eval kernel's; the float32 LSE within 1e-5
-    absolute, relative above 1), `cross_attn_bwd_dq` and `cross_attn_bwd_dkv` on
+    one-ulp gate, as the eval kernel's, which has another body; the float32
+    LSE within 1e-5 absolute, relative above 1), `cross_attn_bwd_dq` and `cross_attn_bwd_dkv` on
     bfloat16 q, k, v, dO against `cross_attn_bwd_plain` (the Pallas bodies'
     roundings): every element within one bfloat16 ulp of the plain version +
     1e-6 + 2^-18 of its absolute scale + one bfloat16 ulp of every rounded p
@@ -202,7 +260,8 @@ class TestBf16TrainingKernels:
         assert float((lse - lse_ref).abs().max()) <= 1e-5 * max(1.0, float(lse_ref.abs().max()))
         o2, lse2 = ac.cross_attn_fwd_lse(q, k, v, V, K, scale)
         assert torch.equal(o, o2) and torch.equal(lse, lse2)
-        assert torch.equal(o, ac.cross_attn_fwd(q, k, v, V, K, scale))
+        assert ac.bf16_ulp_error(ac.cross_attn_fwd(q, k, v, V, K, scale), o_ref,
+                                 abs_scale) <= 1.0
         moved = {n: ac.launches[n] - before[n] for n in before}
         assert moved == {**{n: 0 for n in before}, "cross_attn_fwd_lse_bf16": 2,
                          "cross_attn_fwd_bf16": 1}
@@ -407,3 +466,75 @@ class TestCrossKernels:
                        for g in grads)
             moved = {n: ac.launches[n] - before[n] for n in before}
             assert moved == {**{n: 0 for n in before}, **{n: 1 for n in moves}}, mode
+
+
+class TestHopperPlan:
+    """The Hopper forward kernels' launch plan and walk (`hopper_fwd_plan`,
+    `hopper_fwd_walk`), made in Python where the CPU tests reach them; the card
+    tests hold the plan to the C layout (`kernel_info`). Every query row of a
+    slice is stored by exactly one work item, every item lies inside one view
+    (cross) and takes every key it must see exactly once, the cross kernel
+    never its own view's."""
+
+    @pytest.mark.parametrize("V", (2, 5))
+    @pytest.mark.parametrize("K", (1, 15, 17, 400, 1024, 2048))
+    def test_cross_walk_covers_rows_and_other_views_once(self, K, V):
+        items = ac.hopper_fwd_walk("cross_attn_fwd_bf16", V * K, V, K)
+        rows = [r for r0, n, _ in items for r in range(r0, r0 + n)]
+        assert sorted(rows) == list(range(V * K))
+        for r0, n_live, keys in items:
+            qv = r0 // K
+            assert 1 <= n_live <= ac.HOPPER_ROWS and (r0 + n_live - 1) // K == qv
+            seen = []
+            for k0, n_valid in keys:
+                assert 1 <= n_valid <= ac.HOPPER_KEYS
+                assert k0 // K != qv and (k0 + n_valid - 1) // K == k0 // K
+                seen += range(k0, k0 + n_valid)
+            assert sorted(seen) == [x for x in range(V * K) if x // K != qv]
+        plan = ac.hopper_fwd_plan("cross_attn_fwd_bf16", 3, V * K, 64, V, K)
+        assert plan["items"] == 3 * len(items)
+        assert plan["key_tiles"] == len(items[0][2])
+
+    @pytest.mark.parametrize("S", (1, 15, 17, 400, 1024, 2048))
+    def test_masked_walk_covers_rows_and_keys_once(self, S):
+        items = ac.hopper_fwd_walk("attn_fwd_bf16", S)
+        assert sorted(r for r0, n, _ in items for r in range(r0, r0 + n)) == list(range(S))
+        for _, n_live, keys in items:
+            assert 1 <= n_live <= ac.HOPPER_ROWS
+            assert sorted(x for k0, n in keys for x in range(k0, k0 + n)) == list(range(S))
+        plan = ac.hopper_fwd_plan("attn_fwd_bf16", 5, S, 32)
+        assert (plan["items"], plan["key_tiles"]) == (5 * len(items), len(items[0][2]))
+
+    @pytest.mark.parametrize("dh", (16, 32, 64))
+    def test_shared_bytes_and_swizzle(self, dh):
+        """Two Q buffers of 128 rows and 4 K/V stages of 64 rows, each row
+        2 dh bytes, swizzled to the row width (128 B at dh = 64, 64 at 32,
+        32 at 16), inside a block's 227 KB."""
+        plan = ac.hopper_fwd_plan("attn_fwd_bf16", 1, 64, dh)
+        assert plan["swizzle_bytes"] == 2 * dh
+        assert plan["shared_bytes"] == 1024 + (2 * 128 + 2 * 4 * 64) * 2 * dh + 8 * 12
+        assert plan["shared_bytes"] <= ac.SMEM_BYTES
+        assert (plan["threads"], plan["tile_rows"], plan["stages"]) == (384, 128, 4)
+
+    @pytest.mark.parametrize("name,BH,V,K,items,waves", [
+        ("attn_fwd_bf16", 160, 1, 1024, 1280, 1280 / 132),
+        ("cross_attn_fwd_bf16", 32, 5, 1024, 1280, 1280 / 132),
+        ("attn_fwd_bf16", 160, 1, 400, 640, 640 / 132),
+        ("cross_attn_fwd_bf16", 32, 5, 400, 640, 640 / 132),
+        ("attn_fwd_bf16", 64, 1, 2048, 1024, 1024 / 132),
+        ("cross_attn_fwd_bf16", 32, 2, 2048, 1024, 1024 / 132),
+        ("attn_fwd_bf16", 1, 3, 16, 1, 1.0)])
+    def test_persistent_grid(self, name, BH, V, K, items, waves):
+        """One block an SM walks the work items (the path shapes: bf16 eval,
+        validation, pairs), never more blocks than items."""
+        plan = ac.hopper_fwd_plan(name, BH, V * K, 64, V, K)
+        assert (plan["items"], plan["grid"]) == (items, min(items, 132))
+        assert plan["waves"] == pytest.approx(waves)
+
+    def test_rejects_what_the_kernels_do_not_take(self):
+        with pytest.raises(ValueError):
+            ac.hopper_fwd_plan("attn_fwd_bf16", 1, 64, 48)
+        with pytest.raises(ValueError):
+            ac.hopper_fwd_plan("cross_attn_fwd_bf16", 1, 65, 64, 2, 32)
+        with pytest.raises(ValueError):
+            ac.hopper_fwd_plan("cross_attn_fwd_lse_bf16", 1, 64, 64, 2, 32)
