@@ -7,9 +7,12 @@ Phases, each fatal on failure:
   1. build      -- compile every hand-written kernel from `ops/csrc/` (nvcc,
                    one process per source, started together); a ptxas spill
                    in an attention kernel (float32 or bfloat16) fails it, and
-                   so does a Hopper forward kernel (`attn_fwd_bf16`,
-                   `cross_attn_fwd_bf16`) whose SASS (cuobjdump) lacks HGMMA
-                   or UTMALDG.
+                   so does a Hopper kernel (`attn_fwd_bf16`,
+                   `cross_attn_fwd_bf16`, `cross_attn_fwd_lse_bf16`,
+                   `cross_attn_bwd_dkv_bf16`) whose SASS (cuobjdump) lacks
+                   HGMMA or UTMALDG; so does a ptxas note that it
+                   serialised a kernel's wgmma instructions (a wait it
+                   inserted after each product).
   2. device     -- print the card's name and power limit (nvidia-smi).
   3. kernel     -- each of the fourteen kernels against its plain PyTorch version
                    at the shapes of its main path (eval: V=5, K=1024; training:
@@ -225,7 +228,8 @@ OFF_PATH_KERNELS = ("sinkhorn_log",)
 SPILL_FREE_SOURCES = ("attention_cuda", "attention_bf16_cuda")
 # The Hopper kernels (TMA loads, wgmma products): the build phase fails unless
 # their SASS holds both.
-HOPPER_KERNELS = ("attn_fwd_bf16_kernel", "cross_attn_fwd_bf16_kernel")
+HOPPER_KERNELS = ("attn_fwd_bf16_kernel", "cross_attn_fwd_bf16_kernel",
+                  "cross_attn_fwd_lse_bf16_kernel", "cross_attn_bwd_dkv_bf16_kernel")
 
 
 class SmokeFailure(RuntimeError):
@@ -294,7 +298,7 @@ def build_phase():
         args = re.findall(r"L[ib](\d+)E", mangled[end:])
         return ident + (f"<{','.join(args)}>" if args else "")
 
-    spilled = []
+    spilled, serialised = [], []
     for name, log in logs.items():
         kernel = "?"
         for line in log.splitlines():
@@ -306,10 +310,15 @@ def build_phase():
                 spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
                 if name in SPILL_FREE_SOURCES and spill and int(spill.group(1)) + int(spill.group(2)):
                     spilled.append(f"{kernel} ({spill.group(0)})")
+                serial = re.search(r"wgmma\.mma_async instructions are serialized.*function '(\w+)'",
+                                   line)
+                if serial:
+                    serialised.append(kernel_name(serial.group(1)))
     sass = _sass_flags(cuda_build, "attention_bf16_cuda", kernel_name)
     emit({"phase": "build", "sources": sorted(logs), "seconds": round(dt, 3),
           "sass_attention_bf16": sass})
     check(not spilled, f"ptxas spills: {'; '.join(spilled)}")
+    check(not serialised, f"ptxas serialised the wgmma of {', '.join(serialised)}")
     for name in HOPPER_KERNELS:
         found = {k: v for k, v in sass.items() if k.startswith(name + "<")}
         check(found and all(v["HGMMA"] and v["UTMALDG"] for v in found.values()),
@@ -347,8 +356,8 @@ def _occupancy(name, BH, S, n_views, n_kpts, dh, mode):
     waves on this card of an attention kernel at one shape, from the CUDA
     runtime. The grid: row tiles of each view for the cross kernels (query
     rows; key rows for dk/dv), of all S rows for `attn_fwd`; the Hopper
-    kernels' persistent grid from `hopper_fwd_plan`, whose waves are the work
-    items a resident block walks."""
+    kernels' persistent grid from `hopper_fwd_plan` (`hopper_dkv_plan` for
+    dk/dv), whose waves are the work items a resident block walks."""
     import torch
 
     from e2e_multi_view_matching_tpu_torch.ops import attention_cuda as ac
@@ -356,12 +365,17 @@ def _occupancy(name, BH, S, n_views, n_kpts, dh, mode):
     info = ac.kernel_info(name, dh, mode)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     extra = {}
-    if name in ac.HOPPER_FWD:
-        plan = ac.hopper_fwd_plan(name, BH, S, dh, n_views, n_kpts, sms=sms)
+    if name in ac.HOPPER_FWD or name == ac.HOPPER_DKV:
+        if name == ac.HOPPER_DKV:
+            plan = ac.hopper_dkv_plan(BH, S, dh, n_views, n_kpts, sms=sms)
+            extra = {"query_tiles_per_item": plan["query_tiles"],
+                     "key_rows_computed_per_stored": plan["rows_per_stored"]}
+        else:
+            plan = ac.hopper_fwd_plan(name, BH, S, dh, n_views, n_kpts, sms=sms)
         blocks, waves = plan["grid"], plan["waves"]
         extra = {"threads": info["threads"], "persistent": info["persistent"],
                  "rows_per_item": plan["tile_rows"], "work_items": plan["items"],
-                 "stages": plan["stages"], "swizzle_bytes": plan["swizzle_bytes"]}
+                 "stages": plan["stages"], "swizzle_bytes": plan["swizzle_bytes"], **extra}
     else:
         if name.startswith("attn_fwd"):
             blocks = BH * math.ceil(S / info["tile_rows"])

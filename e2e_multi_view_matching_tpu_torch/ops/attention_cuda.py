@@ -193,15 +193,21 @@ def kernel_info(name, dh, mode="cross"):
 
 
 # The launch of the Hopper forward kernels (`attn_fwd_bf16`, `cross_attn_fwd_bf16`,
-# ops/csrc/attention_bf16_cuda.cu: HW_THREADS, HW_ROWS, BK, HW_STAGES, HSmem):
-# one block of a producer and two consumer warpgroups a work item of 128 query
-# rows at a time, persistent, one block an SM (the consumers take 232 registers).
-HOPPER_FWD = ("attn_fwd_bf16", "cross_attn_fwd_bf16")
+# `cross_attn_fwd_lse_bf16`, ops/csrc/attention_bf16_cuda.cu: HW_THREADS, HW_ROWS,
+# BK, HW_STAGES, HSmem): one block of a producer and two consumer warpgroups a
+# work item of 128 query rows at a time, persistent, one block an SM (the
+# consumers take 232 registers).
+HOPPER_FWD = ("attn_fwd_bf16", "cross_attn_fwd_bf16", "cross_attn_fwd_lse_bf16")
 HOPPER_THREADS = 384
 HOPPER_ROWS = 128  # query rows of a work item, 64 a consumer warpgroup
 HOPPER_KEYS = 64  # keys a K/V tile
 HOPPER_STAGES = 4  # K/V tiles in flight
 SMEM_BYTES = 227 * 1024  # a block's shared memory on an H100
+# The Hopper dk/dv kernel (`cross_attn_bwd_dkv_bf16`: HB_STAGES, BSmem,
+# DkvWalk): the same block shape, a work item of 128 key rows, 4 stages
+# of 64 query rows (Q, dO, their LSE and dvec).
+HOPPER_DKV = "cross_attn_bwd_dkv_bf16"
+HOPPER_DKV_STAGES = 4
 
 
 def _cdiv(a, b):
@@ -219,7 +225,7 @@ def hopper_fwd_plan(name, BH, S, dh, n_views=1, n_kpts=None, sms=132):
         raise ValueError(f"the attention kernels take head widths {_HEAD_DIMS}")
     if name == "attn_fwd_bf16":
         items, key_tiles = BH * _cdiv(S, HOPPER_ROWS), _cdiv(S, HOPPER_KEYS)
-    elif name == "cross_attn_fwd_bf16":
+    elif name in ("cross_attn_fwd_bf16", "cross_attn_fwd_lse_bf16"):
         if n_views < 2 or S != n_views * n_kpts:
             raise ValueError("the cross-view kernels take n_views >= 2 and S = n_views * "
                              "n_kpts")
@@ -234,6 +240,46 @@ def hopper_fwd_plan(name, BH, S, dh, n_views=1, n_kpts=None, sms=132):
     return {"threads": HOPPER_THREADS, "tile_rows": HOPPER_ROWS, "key_rows": HOPPER_KEYS,
             "stages": HOPPER_STAGES, "swizzle_bytes": 2 * dh, "shared_bytes": shared,
             "items": items, "key_tiles": key_tiles, "grid": grid, "waves": items / grid}
+
+
+def hopper_dkv_plan(BH, S, dh, n_views, n_kpts, sms=132):
+    """Launch plan and walk of the Hopper dk/dv kernel (`cross_attn_bwd_dkv_bf16`)
+    on (BH, S, dh), as its C entry point makes them: {threads, tile_rows (key
+    rows of a work item), query_rows (a streamed tile's), stages, swizzle_bytes,
+    shared_bytes, items, grid (persistent: min(items, sms)), waves (items a
+    block), query_tiles (of each view's items, by view), rows_per_stored (key
+    rows computed per key row stored: a consumer warpgroup whose 64 keys all lie
+    past the view's end computes nothing), walk}. `walk` lists one slice's work
+    items in the order the kernel walks them: [(row0, n_live, [(x0, n_valid),
+    ...])]; the item owns key rows row0 .. row0 + n_live - 1 and streams query
+    tiles of 64 rows from x0, of which the first n_valid weigh (the rest are the
+    own view's, the next view's or past S, and weigh 0)."""
+    if dh not in _HEAD_DIMS:
+        raise ValueError(f"the attention kernels take head widths {_HEAD_DIMS}")
+    if n_views < 2 or n_kpts < 1 or S != n_views * n_kpts:
+        raise ValueError("the cross-view kernels take n_views >= 2 and S = n_views * n_kpts")
+    K, T = n_kpts, HOPPER_KEYS
+
+    def tiles(kv):  # the ranges before and after the own view
+        before = [(x0, min(T, kv * K - x0)) for x0 in range(0, kv * K, T)]
+        after = [(x0, min(T, S - x0)) for x0 in range(kv * K + K, S, T)]
+        return before + after
+
+    walk = [(kv * K + r0, min(HOPPER_ROWS, K - r0), tiles(kv))
+            for kv in range(n_views) for r0 in range(0, K, HOPPER_ROWS)]
+    items = BH * len(walk)
+    tile = T * 2 * dh
+    # two K/V buffers of four tiles, the Q and dO stages, a stage's 128 floats,
+    # 12 mbarriers, 1024 B of alignment
+    shared = (1024 + (8 + 2 * HOPPER_DKV_STAGES) * tile + HOPPER_DKV_STAGES * 2 * T * 4
+              + 8 * (2 * HOPPER_DKV_STAGES + 4))
+    computed = sum(64 * _cdiv(n_live, 64) for _, n_live, _ in walk)
+    grid = min(items, sms)
+    return {"threads": HOPPER_THREADS, "tile_rows": HOPPER_ROWS, "query_rows": T,
+            "stages": HOPPER_DKV_STAGES, "swizzle_bytes": 2 * dh, "shared_bytes": shared,
+            "items": items, "grid": grid, "waves": items / grid,
+            "query_tiles": [len(tiles(kv)) for kv in range(n_views)],
+            "rows_per_stored": computed / S, "walk": walk}
 
 
 def hopper_fwd_walk(name, S, n_views=1, n_kpts=None):

@@ -55,58 +55,59 @@
 // drifted up to ~1.5e-6 of sum p |v| / l (4e-6 absolute at |v| ~ 2 on an output
 // that cancels to ~2e-5: 3.5 bf16 ulps there); 12 accumulations a 64-key tile from
 // 0 leave ~7e-7 of it (~2^-20), inside the gate's 2^-18
-// (ops/attention_cuda.py::BF16_SUM_TOL). The backward kernels sum each tile's
-// products into a fresh accumulator the same way.
+// (ops/attention_cuda.py::BF16_SUM_TOL). dq sums each tile's products into a
+// fresh accumulator the same way; dk/dv keeps running sums, which its gate,
+// widened by the flips of the rounded p and ds, held with the same worst
+// reading at the ragged shapes as fresh sums did (PERF.md, section 6).
 //
-// attn_fwd_bf16 and cross_attn_fwd_bf16 (the Hopper design, `hopper_fwd`): a
-// persistent grid of one 384-thread block per SM walks the work items of 128 query
-// rows (two consumer warpgroups of 64 rows each) in a fixed order; a producer warp
-// keeps TMA loads in flight: a work item's Q once, into one of two buffers, and the
-// K and V tiles of 64 keys through a ring of 4 shared-memory stages, each with a
-// full and an empty mbarrier. Tiles are swizzled to the row width (128 B at DH =
-// 64, 64 B at 32, 32 B at 16), as wgmma reads them. S = Q K^T is
-// wgmma.m64n64k16 with both operands in shared memory; P V is wgmma.m64nDHk16 with
-// P's three terms as the register A operand and V read MN-major (transposed). The
-// two consumer warpgroups take turns on the tensor cores (named barriers): in its
-// turn a warpgroup issues this tile's Q K^T and then the last tile's P V, hands
-// the turn over, takes the scores' maximum and exponentials while its P V runs,
-// then O's update and the split of P while the other warpgroup's products run.
-// setmaxnreg gives the producer 40 registers and the consumers 232. In mode full
-// the scale joins the exponent's FMA (ex2.approx: the SFU's exp2, exp2f's range
-// test and subnormal scaling cost 3 instructions a score). The masked kernel
-// compares each key index with the query view's bounds [qv K, (qv + 1) K),
-// computed once a work item; the cross kernel walks the other views one at a time,
-// each in 64-key tiles whose keys past the view's end (read from the next view, or
-// zero-filled past S) weigh exactly 0. Rows past a view's or the slice's end are
-// computed and not stored. No atomics: the same bits on every run. On the H100 the
-// products with the softmax's ~13 instructions a score reach ~47% of the 4-product
-// floor; the products alone ~60% (m64n64 tiles, dh = 64).
+// attn_fwd_bf16, cross_attn_fwd_bf16 and cross_attn_fwd_lse_bf16 (the Hopper
+// design, `hopper_fwd`; the LSE kernel stores m ln 2 + log(l + 1e-9) in its
+// epilogue): a persistent grid of one 384-thread block per SM walks the work
+// items of 128 query rows (two consumer warpgroups of 64 rows each) in a fixed
+// order; a producer warp keeps TMA loads in flight: a work item's Q once, into one
+// of two buffers, and the K and V tiles of 64 keys through a ring of 4
+// shared-memory stages, each with a full and an empty mbarrier. Tiles are swizzled
+// to the row width (128 B at DH = 64, 64 B at 32, 32 B at 16), as wgmma reads
+// them. S = Q K^T is wgmma.m64n64k16 with both operands in shared memory; P V is
+// wgmma.m64nDHk16 with P's three terms as the register A operand and V read
+// MN-major (transposed). The two consumer warpgroups take turns on the tensor
+// cores (named barriers): in its turn a warpgroup issues this tile's Q K^T and
+// then the last tile's P V, hands the turn over, takes the scores' maximum and
+// exponentials while its P V runs, then O's update and the split of P while the
+// other warpgroup's products run. setmaxnreg gives the producer 40 registers and
+// the consumers 232. In mode full the scale joins the exponent's FMA (ex2.approx:
+// the SFU's exp2, exp2f's range test and subnormal scaling cost 3 instructions a
+// score). The masked kernel compares each key index with the query view's bounds
+// [qv K, (qv + 1) K), computed once a work item; the cross kernels walk the other
+// views one at a time, each in 64-key tiles whose keys past the view's end (read
+// from the next view, or zero-filled past S) weigh exactly 0. Rows past a view's
+// or the slice's end are computed and not stored. No atomics: the same bits on
+// every run. On the H100 the products with the softmax's ~13 instructions a score
+// reach ~47% of the 4-product floor; the products alone ~60% (m64n64 tiles, dh =
+// 64).
 //
-// cross_attn_fwd_lse_bf16 and the backward kernels (`fwd_tile`, `bwd_dq_tile`,
-// `bwd_dkv_tile`): FlashAttention-2 style on mma.sync.m16n8k16 (bf16 in, f32
-// accumulate). 4 warps own 64 rows, 16 each; a warp reads its A fragments from
-// shared memory with ldmatrix once per streamed tile (DH/16 k-steps). The streamed
-// operands go through shared memory in tiles of 64 rows with cp.async,
-// double-buffered, rows padded by 8 bf16 so that ldmatrix reads conflict-free; a
-// streamed operand whose rows index the product's columns (K in S = Q K^T) is read
-// with ldmatrix as the B operand, one whose rows index the sum (V in P V) with
-// ldmatrix.trans. The streamed rows of the cross kernels are the other views' as
-// one virtual range of (V-1) K rows with the own view cut out.
-//   dq (bwd_dq_tile) owns query rows: per tile of 64 keys it forms S = Q K^T and
-// dP = dO V^T (K and V both read as B operands), p = exp2(S scale log2 e -
-// lse log2 e) (no running maximum: the LSE holds it), dS = p (dP - dvec), and
-// dQ += bf16(dS) K (K read again, with ldmatrix.trans). dk/dv (bwd_dkv_tile) is
-// its transpose: it owns key rows and streams the other views' Q, dO, LSE and
-// dvec; S^T = K Q^T and dP^T = V dO^T come out with the keys as rows, so P^T and
-// dS^T are in the A-operand layout of dV += bf16(P^T) dO and dK += bf16(dS^T) Q.
-// Each block owns its outputs: no atomics, the same bits on every run.
-//   Registers: the LSE forward holds S (32), O and the tile's accumulator (2 x
-// DH/2), Q fragments (DH/4) and the P terms, built for 3 blocks per SM (<= 168
-// registers a thread); the backward holds two score tiles (2 x 32), one or two
-// output accumulators and the tile's (DH/2 each), built for 2 blocks per SM (<=
-// 255). No spills. Shared memory at DH = 64: LSE forward Q 9 KB, K and V 2 x 2 x 9
-// KB: 45 KB; backward two owned 9 KB groups and two double-buffered streamed
-// operands: 54 KB (dk/dv also 1 KB of LSE and dvec).
+// cross_attn_bwd_dkv_bf16 (the Hopper design of the backward,
+// `cross_attn_bwd_dkv_bf16_kernel`): the same block shape and persistent grid;
+// a work item is 128 key rows inside one view, its K and V loaded once (TMA,
+// then into registers); the producer streams the other views' Q, dO, LSE and
+// dvec in tiles of 64 query rows; S^T = K Q^T and dP^T = V dO^T come out with
+// the keys as rows, so P^T and dS^T are already the register A operand of dV
+// += bf16(P^T) dO and dK += bf16(dS^T) Q (see the kernel). On the H100 its
+// m64n64k16 products run at ~40% of peak and p and ds add ~20%.
+//
+// cross_attn_bwd_dq_bf16 (`bwd_dq_tile`): FlashAttention-2 style on
+// mma.sync.m16n8k16 (bf16 in, f32 accumulate). 4 warps own 64 query rows, 16
+// each; a warp reads its A fragments from shared memory with ldmatrix once per
+// streamed tile (DH/16 k-steps). K and V go through shared memory in tiles of 64
+// rows with cp.async, double-buffered, rows padded by 8 bf16 so that ldmatrix
+// reads conflict-free; the streamed rows are the other views' as one virtual
+// range of (V-1) K rows with the own view cut out. Per tile it forms S = Q K^T and
+// dP = dO V^T (K and V read as B operands), p = exp2(S scale log2 e - lse log2 e)
+// (no running maximum: the LSE holds it), dS = p (dP - dvec), and dQ += bf16(dS)
+// K (K read again, with ldmatrix.trans). It holds two score tiles (2 x 32), the
+// output and the tile's accumulator (DH/2 each), built for 2 blocks per SM (<= 255
+// registers), no spills; shared memory 54 KB at DH = 64. Each block owns its
+// outputs: no atomics, the same bits on every run.
 //
 // The tensor maps are encoded on the host at each call (cuTensorMapEncodeTiled,
 // reached through cudaGetDriverEntryPoint, so the library links no libcuda) and
@@ -128,8 +129,7 @@ constexpr int NW = 4;           // mma.sync kernels: warps per block
 constexpr int NT = 32 * NW;     // mma.sync kernels: threads per block
 constexpr int BQ = 16 * NW;     // mma.sync kernels: query rows per block (16 a warp)
 constexpr int BK = 64;          // keys per tile (every kernel)
-constexpr int MIN_BLOCKS = 3;   // LSE forward: blocks per SM the registers are sized for
-constexpr int BWD_BLOCKS = 2;   // backward: blocks per SM the registers are sized for
+constexpr int BWD_BLOCKS = 2;   // dq: blocks per SM the registers are sized for
 constexpr float kNegInf = -1e9f;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
@@ -138,21 +138,9 @@ enum Mode { kFull = 0, kSelf = 1, kCross = 2 };
 
 static_assert(BQ == BK, "Q and the K/V tiles share the copy routine");
 
-// The LSE forward's shared-memory layout, in bf16 elements: Q (BQ rows), two K
-// tiles, two V tiles, every row DH + 8 long (16 bytes of padding: the 8 rows an
-// ldmatrix reads fall in 8 different groups of 4 banks).
-template <int DH>
-struct Smem {
-  static constexpr int LD = DH + 8;
-  static constexpr int TILE = BK * LD;
-  static constexpr int k_off = BQ * LD;
-  static constexpr int v_off = k_off + 2 * TILE;
-  static constexpr size_t bytes = (size_t)(v_off + 2 * TILE) * sizeof(bf16);
-};
-
-// The backward's layout, in bf16 elements: two owned groups of BQ rows (dq: Q and
-// dO; dk/dv: K and V), then two streamed operands of two tiles each (dq: K and V;
-// dk/dv: Q and dO), then (dk/dv) two tiles of float32 LSE and dvec.
+// dq's layout, in bf16 elements (every row DH + 8 long: 16 bytes of padding, so
+// that the 8 rows an ldmatrix reads fall in 8 different groups of 4 banks): the
+// owned Q and dO (BQ rows each), then the streamed K and V, two tiles each.
 template <int DH>
 struct BwdSmem {
   static constexpr int LD = DH + 8;
@@ -162,7 +150,6 @@ struct BwdSmem {
   static constexpr int y_off = x_off + 2 * TILE;
   static constexpr int end = y_off + 2 * TILE;
   static constexpr size_t bytes = (size_t)end * sizeof(bf16);
-  static constexpr size_t bytes_scalars = bytes + 2 * 2 * BK * sizeof(float);
 };
 
 // 16-byte global -> shared copy, zero-filled (nothing read) when !valid.
@@ -170,14 +157,6 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool vali
   const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
                "r"(valid ? 16 : 0)
-               : "memory");
-}
-
-// 4-byte global -> shared copy, zero-filled when !valid.
-__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src),
-               "r"(valid ? 4 : 0)
                : "memory");
 }
 
@@ -195,7 +174,7 @@ __device__ __forceinline__ void cp_async_wait_all() {
 template <int DH>
 __device__ __forceinline__ void copy_rows(bf16* dst, const bf16* __restrict__ src, int x0,
                                           int n, int gap, int gap_len) {
-  constexpr int C = DH / 8, RPP = NT / C, LD = Smem<DH>::LD;
+  constexpr int C = DH / 8, RPP = NT / C, LD = BwdSmem<DH>::LD;
   static_assert(NT % C == 0 && BK % RPP == 0, "whole rows per pass");
   const int c = threadIdx.x % C, i0 = threadIdx.x / C;
 #pragma unroll
@@ -211,11 +190,15 @@ __device__ __forceinline__ void copy_rows(bf16* dst, const bf16* __restrict__ sr
 // Four 8x8 bf16 matrices from shared memory; lane i gives the address of row
 // i % 8 of matrix i / 8, and receives row lane / 4, columns 2 (lane % 4) + {0, 1}
 // of each (with .trans: column lane / 4, rows 2 (lane % 4) + {0, 1}).
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+__device__ __forceinline__ void ldsm_x4_at(uint32_t (&r)[4], uint32_t a) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(a));
+}
+
+// ldsm_x4_at from a generic pointer into shared memory.
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
+  ldsm_x4_at(r, static_cast<uint32_t>(__cvta_generic_to_shared(p)));
 }
 
 __device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const bf16* p) {
@@ -242,209 +225,6 @@ __device__ __forceinline__ uint32_t as_u32(__nv_bfloat162 v) {
 // (x, y) rounded to bfloat16, packed as one A-fragment register (x low).
 __device__ __forceinline__ uint32_t pack_bf16(float x, float y) {
   return as_u32(__floats2bfloat162_rn(x, y));
-}
-
-// (x, y) -> three bf16 pairs whose sum is exactly (x, y): each term rounds what
-// the ones before it left (x - hi is exact in float32, and so on).
-__device__ __forceinline__ void split3(float x, float y, uint32_t& hi, uint32_t& mid,
-                                       uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
-  x -= __low2float(h);
-  y -= __high2float(h);
-  const __nv_bfloat162 m = __floats2bfloat162_rn(x, y);
-  x -= __low2float(m);
-  y -= __high2float(m);
-  hi = as_u32(h);
-  mid = as_u32(m);
-  lo = as_u32(__floats2bfloat162_rn(x, y));
-}
-
-// One LSE-forward block: query rows row0 .. row0 + n_live - 1 of one
-// (batch*head) slice (q, k, v, o already offset to it) against the keys of the
-// virtual range [0, nkeys) (see copy_rows); also lse[row] = m + log(l + 1e-9) in
-// float32 (lse offset to the slice).
-template <int DH>
-__device__ __forceinline__ void fwd_tile(const bf16* __restrict__ q,
-                                         const bf16* __restrict__ k,
-                                         const bf16* __restrict__ v, bf16* __restrict__ o,
-                                         float* __restrict__ lse, int row0, int n_live,
-                                         int nkeys, int gap, int gap_len, float scale) {
-  using L = Smem<DH>;
-  constexpr int LD = L::LD;
-  constexpr int KS = DH / 16;  // k-steps of Q K^T
-  constexpr int ND = DH / 8;   // 8-column blocks of O
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* qs = reinterpret_cast<bf16*>(smem_raw);
-  bf16* ks = qs + L::k_off;
-  bf16* vs = qs + L::v_off;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, tq = lane & 3;  // fragment row g (and g + 8), columns 2 tq + {0, 1}
-  const bool live = warp * 16 < n_live;    // warp-uniform
-
-  copy_rows<DH>(qs, q + (size_t)row0 * DH, 0, n_live, INT_MAX, 0);
-  copy_rows<DH>(ks, k, 0, nkeys, gap, gap_len);
-  copy_rows<DH>(vs, v, 0, nkeys, gap, gap_len);
-  cp_async_commit();
-
-  float acc[ND][4];
-#pragma unroll
-  for (int d = 0; d < ND; ++d)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[d][e] = 0.f;
-  float m0 = kNegInf * kLog2e, m1 = kNegInf * kLog2e, l0 = 0.f, l1 = 0.f;
-  const float scale2 = scale * kLog2e;  // scores in base 2
-  const int n_tiles = (nkeys + BK - 1) / BK;
-
-  for (int t = 0; t < n_tiles; ++t) {
-    cp_async_wait_all();  // tile t (and Q) have landed
-    __syncthreads();      // ... for every thread; and every warp is done with tile t-1
-    if (t + 1 < n_tiles) {  // lands during tile t's products, in the other buffer
-      const int nb = (t + 1) & 1;
-      copy_rows<DH>(ks + nb * L::TILE, k, (t + 1) * BK, nkeys, gap, gap_len);
-      copy_rows<DH>(vs + nb * L::TILE, v, (t + 1) * BK, nkeys, gap, gap_len);
-      cp_async_commit();
-    }
-    if (!live) continue;
-    uint32_t qf[KS][4];
-#pragma unroll
-    for (int kk = 0; kk < KS; ++kk)
-      ldsm_x4(qf[kk], qs + (warp * 16 + (lane & 15)) * LD + 16 * kk + 8 * (lane >> 4));
-    const bf16* kt = ks + (t & 1) * L::TILE;
-    const bf16* vt = vs + (t & 1) * L::TILE;
-
-    // S = Q K^T: 8 blocks of 8 keys
-    float s[8][4];
-#pragma unroll
-    for (int nb = 0; nb < 8; ++nb)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[nb][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < KS; ++kk) {
-#pragma unroll
-      for (int nb = 0; nb < 8; nb += 2) {
-        uint32_t b[4];  // B fragments of key blocks nb and nb + 1
-        ldsm_x4(b, kt + (8 * nb + (lane & 7) + 8 * (lane >> 4)) * LD + 16 * kk +
-                       8 * ((lane >> 3) & 1));
-        mma_bf16(s[nb], qf[kk], b[0], b[1]);
-        mma_bf16(s[nb + 1], qf[kk], b[2], b[3]);
-      }
-    }
-
-    const int x0 = t * BK;
-#pragma unroll
-    for (int nb = 0; nb < 8; ++nb) {
-#pragma unroll
-      for (int c = 0; c < 2; ++c) {
-        const int x = x0 + 8 * nb + 2 * tq + c;
-        float a = s[nb][c] * scale2, b = s[nb][2 + c] * scale2;
-        if (x0 + BK > nkeys && x >= nkeys) a = b = -INFINITY;  // past the range: weight 0
-        s[nb][c] = a;
-        s[nb][2 + c] = b;
-      }
-    }
-
-    // online softmax over the tile, rows g (elements 0, 1) and g + 8 (2, 3)
-    float mx0 = s[0][0], mx1 = s[0][2];
-#pragma unroll
-    for (int nb = 0; nb < 8; ++nb) {
-      mx0 = fmaxf(mx0, fmaxf(s[nb][0], s[nb][1]));
-      mx1 = fmaxf(mx1, fmaxf(s[nb][2], s[nb][3]));
-    }
-    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
-    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
-    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
-    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
-    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
-    const float al0 = exp2f(m0 - mn0), al1 = exp2f(m1 - mn1);
-    m0 = mn0;
-    m1 = mn1;
-    float ps0 = 0.f, ps1 = 0.f;
-#pragma unroll
-    for (int nb = 0; nb < 8; ++nb) {
-      s[nb][0] = exp2f(s[nb][0] - mn0);
-      s[nb][1] = exp2f(s[nb][1] - mn0);
-      s[nb][2] = exp2f(s[nb][2] - mn1);
-      s[nb][3] = exp2f(s[nb][3] - mn1);
-      ps0 += s[nb][0] + s[nb][1];
-      ps1 += s[nb][2] + s[nb][3];
-    }
-    l0 = l0 * al0 + ps0;
-    l1 = l1 * al1 + ps1;
-
-    // the tile's P V, 16 keys a k-step; the accumulators of key blocks 2j and
-    // 2j + 1 are the A fragment of k-step j
-    float to[ND][4];
-#pragma unroll
-    for (int d = 0; d < ND; ++d)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) to[d][e] = 0.f;
-#pragma unroll
-    for (int j = 0; j < BK / 16; ++j) {
-      uint32_t ph[4], pm[4], pl[4];
-      split3(s[2 * j][0], s[2 * j][1], ph[0], pm[0], pl[0]);
-      split3(s[2 * j][2], s[2 * j][3], ph[1], pm[1], pl[1]);
-      split3(s[2 * j + 1][0], s[2 * j + 1][1], ph[2], pm[2], pl[2]);
-      split3(s[2 * j + 1][2], s[2 * j + 1][3], ph[3], pm[3], pl[3]);
-#pragma unroll
-      for (int d = 0; d < ND; d += 2) {
-        uint32_t b[4];  // B fragments of O's column blocks d and d + 1
-        ldsm_x4_trans(b, vt + (16 * j + (lane & 7) + 8 * ((lane >> 3) & 1)) * LD + 8 * d +
-                             8 * (lane >> 4));
-        mma_bf16(to[d], ph, b[0], b[1]);
-        mma_bf16(to[d], pm, b[0], b[1]);
-        mma_bf16(to[d], pl, b[0], b[1]);
-        mma_bf16(to[d + 1], ph, b[2], b[3]);
-        mma_bf16(to[d + 1], pm, b[2], b[3]);
-        mma_bf16(to[d + 1], pl, b[2], b[3]);
-      }
-    }
-#pragma unroll
-    for (int d = 0; d < ND; ++d) {  // O = O alpha + the tile's P V, in float32
-      acc[d][0] = fmaf(acc[d][0], al0, to[d][0]);
-      acc[d][1] = fmaf(acc[d][1], al0, to[d][1]);
-      acc[d][2] = fmaf(acc[d][2], al1, to[d][2]);
-      acc[d][3] = fmaf(acc[d][3], al1, to[d][3]);
-    }
-  }
-
-  if (!live) return;
-  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
-  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
-  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
-  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
-  const float d0 = l0 + 1e-9f, d1 = l1 + 1e-9f;
-  const int r = warp * 16 + g;
-#pragma unroll
-  for (int d = 0; d < ND; ++d) {
-    const int col = 8 * d + 2 * tq;
-    if (r < n_live)
-      *reinterpret_cast<__nv_bfloat162*>(o + (size_t)(row0 + r) * DH + col) =
-          __floats2bfloat162_rn(acc[d][0] / d0, acc[d][1] / d0);
-    if (r + 8 < n_live)
-      *reinterpret_cast<__nv_bfloat162*>(o + (size_t)(row0 + r + 8) * DH + col) =
-          __floats2bfloat162_rn(acc[d][2] / d1, acc[d][3] / d1);
-  }
-  if (tq == 0) {  // m is in base 2: LSE = m ln 2 + log(l + 1e-9)
-    if (r < n_live) lse[row0 + r] = m0 * kLn2 + logf(d0);
-    if (r + 8 < n_live) lse[row0 + r + 8] = m1 * kLn2 + logf(d1);
-  }
-}
-
-// grid (n_views * tiles, BH) with tiles = ceil(n_kpts / BQ) query tiles per view,
-// the last one ragged. The keys are the (V-1) K of the other views: the virtual
-// key x is key x, or x + K from the query's own view qv on; lse is (BH, S) float32.
-template <int DH>
-__global__ void __launch_bounds__(NT, MIN_BLOCKS)
-cross_attn_fwd_lse_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                               const bf16* __restrict__ v, bf16* __restrict__ o,
-                               float* __restrict__ lse, int S, int n_views, int n_kpts,
-                               int tiles, float scale) {
-  const size_t base = (size_t)blockIdx.y * S * DH;
-  const int qv = blockIdx.x / tiles;
-  const int r0 = (blockIdx.x % tiles) * BQ;  // first row within the view
-  fwd_tile<DH>(q + base, k + base, v + base, o + base, lse + (size_t)blockIdx.y * S,
-               qv * n_kpts + r0, min(BQ, n_kpts - r0), (n_views - 1) * n_kpts, qv * n_kpts,
-               n_kpts, scale);
 }
 
 // acc += bf16(x) B over one streamed tile: x is a warp's 16 x BK score
@@ -595,146 +375,6 @@ __device__ __forceinline__ void bwd_dq_tile(const bf16* __restrict__ q,
   }
 }
 
-// Tile slot i <- the LSE and dvec of row x0 + i of the virtual range [0, n)
-// (zeros past n): threads 0 .. BK-1 copy the LSE, BK .. 2 BK - 1 dvec.
-__device__ __forceinline__ void copy_row_scalars(float* dst, const float* __restrict__ lse,
-                                                 const float* __restrict__ dvec, int x0,
-                                                 int n, int gap, int gap_len) {
-  static_assert(NT == 2 * BK, "one scalar a thread");
-  const int i = threadIdx.x % BK;
-  const int x = x0 + i;
-  const bool valid = x < n;
-  const int row = valid ? x + (x >= gap ? gap_len : 0) : 0;
-  const float* src = threadIdx.x < BK ? lse : dvec;
-  cp_async4(dst + threadIdx.x, src + row, valid);
-}
-
-// One dk/dv block: key rows row0 .. row0 + n_live - 1 of one slice (k, v offset
-// to row0; q, dout, lse, dvec to the slice) against the query rows of the
-// virtual range [0, nq):
-//   dv_j = sum_i bf16(p_ij) dO_i,  dk_j = scale sum_i bf16(p_ij (dp_ij - dvec_i)) q_i
-template <int DH>
-__device__ __forceinline__ void bwd_dkv_tile(const bf16* __restrict__ q,
-                                             const bf16* __restrict__ k,
-                                             const bf16* __restrict__ v,
-                                             const bf16* __restrict__ dout,
-                                             const float* __restrict__ lse,
-                                             const float* __restrict__ dvec,
-                                             bf16* __restrict__ dk, bf16* __restrict__ dv,
-                                             int n_live, int nq, int gap, int gap_len,
-                                             float scale) {
-  using L = BwdSmem<DH>;
-  constexpr int LD = L::LD;
-  constexpr int KS = DH / 16;
-  constexpr int ND = DH / 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* ks = reinterpret_cast<bf16*>(smem_raw);
-  bf16* vs = ks + L::b_off;
-  bf16* qs = ks + L::x_off;
-  bf16* dos = ks + L::y_off;
-  float* sc = reinterpret_cast<float*>(ks + L::end);  // 2 x (LSE[BK], dvec[BK])
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, tq = lane & 3;
-  const bool live = warp * 16 < n_live;
-
-  copy_rows<DH>(ks, k, 0, n_live, INT_MAX, 0);
-  copy_rows<DH>(vs, v, 0, n_live, INT_MAX, 0);
-  copy_rows<DH>(qs, q, 0, nq, gap, gap_len);
-  copy_rows<DH>(dos, dout, 0, nq, gap, gap_len);
-  copy_row_scalars(sc, lse, dvec, 0, nq, gap, gap_len);
-  cp_async_commit();
-
-  float dka[ND][4], dva[ND][4];
-#pragma unroll
-  for (int d = 0; d < ND; ++d)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dka[d][e] = dva[d][e] = 0.f;
-  const float scale2 = scale * kLog2e;
-  const int n_tiles = (nq + BK - 1) / BK;
-
-  for (int t = 0; t < n_tiles; ++t) {
-    cp_async_wait_all();  // tile t (and K, V) have landed
-    __syncthreads();      // ... for every thread; and every warp is done with tile t-1
-    if (t + 1 < n_tiles) {
-      const int nb = (t + 1) & 1;
-      copy_rows<DH>(qs + nb * L::TILE, q, (t + 1) * BK, nq, gap, gap_len);
-      copy_rows<DH>(dos + nb * L::TILE, dout, (t + 1) * BK, nq, gap, gap_len);
-      copy_row_scalars(sc + nb * 2 * BK, lse, dvec, (t + 1) * BK, nq, gap, gap_len);
-      cp_async_commit();
-    }
-    if (!live) continue;
-    const bf16* qt = qs + (t & 1) * L::TILE;
-    const bf16* dot = dos + (t & 1) * L::TILE;
-    const float* lt = sc + (t & 1) * 2 * BK;
-
-    // S^T = K Q^T and dP^T = V dO^T: rows are this warp's keys, columns 8
-    // blocks of 8 query rows
-    float st[8][4], dpt[8][4];
-#pragma unroll
-    for (int nb = 0; nb < 8; ++nb)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) st[nb][e] = dpt[nb][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < KS; ++kk) {
-      uint32_t kf[4], vf[4];
-      ldsm_x4(kf, ks + (warp * 16 + (lane & 15)) * LD + 16 * kk + 8 * (lane >> 4));
-      ldsm_x4(vf, vs + (warp * 16 + (lane & 15)) * LD + 16 * kk + 8 * (lane >> 4));
-#pragma unroll
-      for (int nb = 0; nb < 8; nb += 2) {
-        const int off = (8 * nb + (lane & 7) + 8 * (lane >> 4)) * LD + 16 * kk +
-                        8 * ((lane >> 3) & 1);
-        uint32_t b[4];
-        ldsm_x4(b, qt + off);
-        mma_bf16(st[nb], kf, b[0], b[1]);
-        mma_bf16(st[nb + 1], kf, b[2], b[3]);
-        ldsm_x4(b, dot + off);
-        mma_bf16(dpt[nb], vf, b[0], b[1]);
-        mma_bf16(dpt[nb + 1], vf, b[2], b[3]);
-      }
-    }
-
-    // P^T into st, dS^T = P^T (dP^T - dvec) into dpt, float32
-    const int x0 = t * BK;
-#pragma unroll
-    for (int nb = 0; nb < 8; ++nb) {
-#pragma unroll
-      for (int c = 0; c < 2; ++c) {
-        const int y = 8 * nb + 2 * tq + c;  // query row in the tile
-        const bool past = x0 + BK > nq && x0 + y >= nq;
-        const float l2 = lt[y] * kLog2e, dvy = lt[BK + y];
-        const float pa = past ? 0.f : exp2f(fmaf(st[nb][c], scale2, -l2));
-        const float pb = past ? 0.f : exp2f(fmaf(st[nb][2 + c], scale2, -l2));
-        st[nb][c] = pa;
-        st[nb][2 + c] = pb;
-        dpt[nb][c] = pa * (dpt[nb][c] - dvy);
-        dpt[nb][2 + c] = pb * (dpt[nb][2 + c] - dvy);
-      }
-    }
-
-    add_tile_product<DH>(dva, st, dot, lane);  // the tile's bf16(P^T) dO
-    add_tile_product<DH>(dka, dpt, qt, lane);  // the tile's bf16(dS^T) Q
-  }
-
-  if (!live) return;
-  const int r = warp * 16 + g;
-#pragma unroll
-  for (int d = 0; d < ND; ++d) {
-    const int col = 8 * d + 2 * tq;
-    if (r < n_live) {
-      *reinterpret_cast<__nv_bfloat162*>(dk + (size_t)r * DH + col) =
-          __floats2bfloat162_rn(dka[d][0] * scale, dka[d][1] * scale);
-      *reinterpret_cast<__nv_bfloat162*>(dv + (size_t)r * DH + col) =
-          __floats2bfloat162_rn(dva[d][0], dva[d][1]);
-    }
-    if (r + 8 < n_live) {
-      *reinterpret_cast<__nv_bfloat162*>(dk + (size_t)(r + 8) * DH + col) =
-          __floats2bfloat162_rn(dka[d][2] * scale, dka[d][3] * scale);
-      *reinterpret_cast<__nv_bfloat162*>(dv + (size_t)(r + 8) * DH + col) =
-          __floats2bfloat162_rn(dva[d][2], dva[d][3]);
-    }
-  }
-}
-
 // grid (n_views * tiles, BH): the block owns query rows of view qv and streams
 // the other views' keys.
 template <int DH>
@@ -752,26 +392,6 @@ cross_attn_bwd_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict
                   dout + base + (size_t)row0 * DH, lse + r, dvec + r,
                   dq + base + (size_t)row0 * DH, min(BQ, (qv + 1) * n_kpts - row0),
                   (n_views - 1) * n_kpts, qv * n_kpts, n_kpts, scale);
-}
-
-// grid (n_views * tiles, BH): the block owns key rows of view kv and streams
-// the other views' queries.
-template <int DH>
-__global__ void __launch_bounds__(NT, BWD_BLOCKS)
-cross_attn_bwd_dkv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                               const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                               const float* __restrict__ lse,
-                               const float* __restrict__ dvec, bf16* __restrict__ dk,
-                               bf16* __restrict__ dv, int S, int n_views, int n_kpts,
-                               int tiles, float scale) {
-  const size_t base = (size_t)blockIdx.y * S * DH;
-  const int kv = blockIdx.x / tiles;
-  const int row0 = kv * n_kpts + (blockIdx.x % tiles) * BQ;
-  const size_t own = base + (size_t)row0 * DH;
-  bwd_dkv_tile<DH>(q + base, k + own, v + own, dout + base, lse + (size_t)blockIdx.y * S,
-                   dvec + (size_t)blockIdx.y * S, dk + own, dv + own,
-                   min(BQ, (kv + 1) * n_kpts - row0), (n_views - 1) * n_kpts, kv * n_kpts,
-                   n_kpts, scale);
 }
 
 // ---- attn_fwd_bf16 and cross_attn_fwd_bf16: TMA, wgmma, warp-specialised ----
@@ -913,6 +533,18 @@ __device__ __forceinline__ void split3_bf16x2(float x, float y, uint32_t& hi, ui
   lo = cvt_bf16x2(x, y);
 }
 
+// Two floats from shared memory at addr (8-byte aligned): a 32-bit address
+// instead of a generic pointer, one register fewer where registers are scarce.
+__device__ __forceinline__ float2 lds_f2(uint32_t addr) {
+  float2 v;
+  asm volatile("ld.shared.v2.f32 {%0, %1}, [%2];\n" : "=f"(v.x), "=f"(v.y) : "r"(addr));
+  return v;
+}
+
+__device__ __forceinline__ void sts_f32(uint32_t addr, float v) {
+  asm volatile("st.shared.f32 [%0], %1;\n" ::"r"(addr), "f"(v) : "memory");
+}
+
 // Keeps the compiler from moving reads (and writes) of r across the waits.
 template <int N>
 __device__ __forceinline__ void fence_regs(float (&r)[N]) {
@@ -969,8 +601,10 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[16], uint32_t a0, uint32_t a
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(accumulate));
 }
 
-// d (64 x 64 f32) = [d +] A B: A (64 x 16 bf16) from registers, B (16 x 64)
-// MN-major in shared memory (P V: V's rows are B's rows, read transposed).
+// d (64 x 64 f32) = [d +] A B: A (64 x 16 bf16) from registers, B (16 x 64) in
+// shared memory, MN-major with TRANS_B = 1 (P V: V's rows are B's rows, read
+// transposed), K-major with 0 (S^T = K Q^T: Q's rows are B's columns).
+template <int TRANS_B = 1>
 __device__ __forceinline__ void wgmma_rs(float (&d)[32], uint32_t a0, uint32_t a1,
                                          uint32_t a2, uint32_t a3, uint64_t db,
                                          int accumulate) {
@@ -979,14 +613,14 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32], uint32_t a0, uint32_t a
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
       "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      "{%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
         "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
         "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
         "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
         "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
         "+f"(d[31])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(accumulate));
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(accumulate), "n"(TRANS_B));
 }
 
 // attn_fwd_bf16's walk: work items of 128 rows over all S rows of each slice
@@ -1027,12 +661,13 @@ struct CrossWalk {
 
 // The Hopper forward: the work items of `walk` from blockIdx.x on, gridDim.x
 // apart, under the mask MODE over the key index (attn_fwd's modes; the cross
-// kernel passes kFull). o is (BH, S, DH); qm, km, vm map q, k, v.
-template <int DH, int MODE, typename Walk>
+// kernels pass kFull). o is (BH, S, DH); qm, km, vm map q, k, v. With LSE the
+// epilogue also stores lse[row] = m ln 2 + log(l + 1e-9) (lse (BH, S) float32).
+template <int DH, int MODE, bool LSE, typename Walk>
 __device__ __forceinline__ void hopper_fwd(const CUtensorMap* qm, const CUtensorMap* km,
                                            const CUtensorMap* vm, bf16* __restrict__ o,
-                                           Walk walk, int S, int n_kpts, float scale,
-                                           int n_items) {
+                                           float* __restrict__ lse, Walk walk, int S,
+                                           int n_kpts, float scale, int n_items) {
   using L = HSmem<DH>;
   constexpr int R = DH / 2;  // accumulator registers of a 64 x DH tile
   extern __shared__ __align__(16) unsigned char hw_smem[];
@@ -1284,6 +919,11 @@ __device__ __forceinline__ void hopper_fwd(const CUtensorMap* qm, const CUtensor
         *reinterpret_cast<__nv_bfloat162*>(ob + (size_t)(r + 8) * DH + col) =
             __floats2bfloat162_rn(acc[4 * d + 2] / d1, acc[4 * d + 3] / d1);
     }
+    if (LSE && tq == 0) {  // m is in base 2: LSE = m ln 2 + log(l + 1e-9)
+      float* lb = lse + (size_t)bh * S + row0;
+      if (r < n_live) lb[r] = m0 * kLn2 + logf(d0);
+      if (r + 8 < n_live) lb[r + 8] = m1 * kLn2 + logf(d1);
+    }
   }
   if (c == 0) turn_wait(1);  // the turn consumer 1 passed after its last products
 }
@@ -1297,7 +937,13 @@ attn_fwd_bf16_kernel(const __grid_constant__ CUtensorMap qm,
                      const __grid_constant__ CUtensorMap vm, bf16* __restrict__ o, int S,
                      int n_kpts, float scale, int n_items) {
   const SelfWalk walk{S, (S + HW_ROWS - 1) / HW_ROWS, (S + BK - 1) / BK};
-  hopper_fwd<DH, MODE>(&qm, &km, &vm, o, walk, S, n_kpts, scale, n_items);
+  hopper_fwd<DH, MODE, false>(&qm, &km, &vm, o, nullptr, walk, S, n_kpts, scale, n_items);
+}
+
+__device__ __forceinline__ CrossWalk cross_walk(int n_views, int n_kpts) {
+  const int view_tiles = (n_kpts + BK - 1) / BK;
+  return CrossWalk{n_views, n_kpts, (n_kpts + HW_ROWS - 1) / HW_ROWS, view_tiles,
+                   (n_views - 1) * view_tiles, 0};
 }
 
 // Persistent grid as above: the BH n_views ceil(K / 128) work items of
@@ -1308,10 +954,363 @@ cross_attn_fwd_bf16_kernel(const __grid_constant__ CUtensorMap qm,
                            const __grid_constant__ CUtensorMap km,
                            const __grid_constant__ CUtensorMap vm, bf16* __restrict__ o,
                            int S, int n_views, int n_kpts, float scale, int n_items) {
-  const int view_tiles = (n_kpts + BK - 1) / BK;
-  const CrossWalk walk{n_views, n_kpts, (n_kpts + HW_ROWS - 1) / HW_ROWS, view_tiles,
-                       (n_views - 1) * view_tiles, 0};
-  hopper_fwd<DH, kFull>(&qm, &km, &vm, o, walk, S, n_kpts, scale, n_items);
+  hopper_fwd<DH, kFull, false>(&qm, &km, &vm, o, nullptr, cross_walk(n_views, n_kpts), S,
+                               n_kpts, scale, n_items);
+}
+
+// cross_attn_fwd_bf16_kernel that also stores the LSE: a kernel symbol of its
+// own, so that a profile tells the training forward from the eval one.
+template <int DH>
+__global__ void __launch_bounds__(HW_THREADS, 1)
+cross_attn_fwd_lse_bf16_kernel(const __grid_constant__ CUtensorMap qm,
+                               const __grid_constant__ CUtensorMap km,
+                               const __grid_constant__ CUtensorMap vm, bf16* __restrict__ o,
+                               float* __restrict__ lse, int S, int n_views, int n_kpts,
+                               float scale, int n_items) {
+  hopper_fwd<DH, kFull, true>(&qm, &km, &vm, o, lse, cross_walk(n_views, n_kpts), S, n_kpts,
+                              scale, n_items);
+}
+
+// ---- cross_attn_bwd_dkv_bf16: TMA, wgmma, warp-specialised ----
+
+constexpr int HB_STAGES = 4;  // Q and dO tiles of 64 query rows in flight
+// setmaxnreg of the dk/dv kernel: the block's 168 x 384 registers at launch
+// shared as 56 x 128 (producer) + 224 x 256 (consumers). The producer walks
+// the query ranges and stores the LSE and dvec, and spilled at the forward's 40
+// (dh = 64); a consumer holds dK, dV, S^T, dP^T (4 x 32), the two bf16 A
+// operands of the sums (2 x 16) and K's and V's fragments (2 x 16) while the
+// products run.
+constexpr int HB_PRODUCER_REGS = 56;
+constexpr int HB_CONSUMER_REGS = 224;
+static_assert(128 * HB_PRODUCER_REGS + 256 * HB_CONSUMER_REGS <= 168 * HW_THREADS,
+              "setmaxnreg takes no more than the launch's registers");
+// A stage's full barrier: the 32 producer threads, each after its stores of the
+// tile's LSE and dvec, and thread 0 once more with the bytes TMA brings.
+constexpr int HB_FULL_ARRIVALS = 33;
+
+__host__ __device__ constexpr int cdiv(int a, int b) { return (a + b - 1) / b; }
+
+// Shared-memory layout in bytes from a 1024-aligned base: two K/V buffers of
+// four 64-row tiles (K's halves, then V's: one half a consumer warpgroup),
+// HB_STAGES Q tiles, HB_STAGES dO tiles (each swizzled as HSmem's), a stage's
+// 64 LSE log2 e and 64 dvec in float32, then the mbarriers.
+template <int DH>
+struct BSmem {
+  static constexpr int TILE = HSmem<DH>::TILE;
+  static constexpr int kv_off = 0;
+  static constexpr int q_off = kv_off + 8 * TILE;
+  static constexpr int do_off = q_off + HB_STAGES * TILE;
+  static constexpr int sc_off = do_off + HB_STAGES * TILE;
+  static constexpr int bar_off = sc_off + HB_STAGES * 2 * BK * 4;
+  static constexpr int n_bars = 2 * HB_STAGES + 4;  // full, empty a stage; full, empty a K/V buffer
+  static constexpr size_t bytes = 1024 + bar_off + 8 * n_bars;
+};
+
+// cross_attn_bwd_dkv_bf16's walk: work items of 128 key rows inside one view kv
+// (the last of a view ragged; item i: slice i / (n_views row_tiles)), each
+// against the other views' query rows, streamed as the two contiguous ranges
+// before and after the own view, [0, kv K) and [(kv + 1) K, S), in n_tiles(kv)
+// tiles of 64 (a tile that straddles into the own view or past S weighs 0
+// there: 25-26 tiles at V = 5, K = 400, against 28 one view at a time).
+struct DkvWalk {
+  int S, n_views, n_kpts, row_tiles;
+  __device__ void item(int i, int& bh, int& kv, int& row0, int& n_live) const {
+    const int per = n_views * row_tiles;
+    bh = i / per;
+    const int rest = i - bh * per;
+    kv = rest / row_tiles;
+    const int r0 = (rest - kv * row_tiles) * HW_ROWS;  // first row within the view
+    row0 = kv * n_kpts + r0;
+    n_live = min(HW_ROWS, n_kpts - r0);
+  }
+  __device__ int n_tiles(int kv) const {
+    return cdiv(kv * n_kpts, BK) + cdiv(S - (kv + 1) * n_kpts, BK);
+  }
+  // tile t of view kv's walk: query rows x0 .. x0 + 63, of which the first
+  // `valid` weigh
+  __device__ void tile(int kv, int t, int& x0, int& valid) const {
+    const int na = cdiv(kv * n_kpts, BK);
+    if (t < na) {
+      x0 = t * BK;
+      valid = min(BK, kv * n_kpts - x0);
+    } else {
+      x0 = (kv + 1) * n_kpts + (t - na) * BK;
+      valid = min(BK, S - x0);
+    }
+  }
+};
+
+// dk and dv of the cross-view attention on a persistent grid of min(n_items,
+// SMs) blocks: the BH n_views ceil(K / 128) work items of DkvWalk from
+// blockIdx.x on, gridDim.x apart. qm, km, vm, dom map q, k, v, dO; lse, dvec,
+// dk, dv are (BH, S). A producer warp loads an item's K and V once (TMA, into
+// one of two buffers) and streams the query tiles through HB_STAGES stages:
+// Q and dO by TMA, the LSE and dvec by plain loads of its 32 threads. Those two
+// are (BH, S) float32, so a slice's stride is S floats: a multiple of the 16
+// bytes a tensor map needs only where 4 divides S, which ragged shapes break.
+// The producer also writes what makes a row that must not weigh (the own view,
+// past a view or past S) drop out of the arithmetic: LSE +inf (p = exp2(-inf) =
+// 0) and dvec 0 (ds = 0 (dp - 0) = 0), so the consumers mask nothing.
+// Consumer warpgroup c owns the item's keys 64 c .. 64 c + 63; a warpgroup whose
+// keys all lie past the view's end takes its turns and arrivals and computes
+// nothing. Per tile: S^T = K Q^T and dP^T = V dO^T (wgmma m64n64k16, K and V the
+// A operands, loaded into registers once a work item by ldmatrix from the
+// swizzled tiles, so that the tensor cores read only Q and dO from shared
+// memory; Q and dO K-major B operands), p = exp2(s scale log2 e - lse log2 e)
+// and ds = p (dp - dvec) in float32 registers, then dV += bf16(P^T) dO and dK +=
+// bf16(dS^T) Q (wgmma m64nDHk16, the rounded accumulators as the register A
+// operand, dO and Q MN-major). In its turn a warpgroup issues the tile's S^T
+// and dP^T, which queue behind its last tile's sums; it waits for both, frees
+// the last tile's stage, takes p and ds while the other warpgroup's products
+// run, and issues the tile's two sums straight into dV and dK (running sums:
+// one fresh accumulator a tile, all the registers leave room for, would
+// serialise dV's sum and dK's behind three waits a tile).
+template <int DH>
+__global__ void __launch_bounds__(HW_THREADS, 1)
+cross_attn_bwd_dkv_bf16_kernel(const __grid_constant__ CUtensorMap qm,
+                               const __grid_constant__ CUtensorMap km,
+                               const __grid_constant__ CUtensorMap vm,
+                               const __grid_constant__ CUtensorMap dom,
+                               const float* __restrict__ lse, const float* __restrict__ dvec,
+                               bf16* __restrict__ dk, bf16* __restrict__ dv, int S,
+                               int n_views, int n_kpts, float scale, int n_items) {
+  using L = BSmem<DH>;
+  using H = HSmem<DH>;
+  constexpr int R = DH / 2;  // accumulator registers of a 64 x DH tile
+  extern __shared__ __align__(16) unsigned char hb_smem[];
+  const uint32_t base = (smem_u32(hb_smem) + 1023u) & ~1023u;
+  // mbarriers: full and empty of each stage, full and empty of each K/V buffer
+  const uint32_t full0 = base + L::bar_off, empty0 = full0 + 8 * HB_STAGES;
+  const uint32_t kvfull0 = empty0 + 8 * HB_STAGES, kvempty0 = kvfull0 + 16;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < HB_STAGES; ++s) {
+      mbar_init(full0 + 8 * s, HB_FULL_ARRIVALS);
+      mbar_init(empty0 + 8 * s, 8);  // every consumer warp, done with the stage
+    }
+    for (int b = 0; b < 2; ++b) {
+      mbar_init(kvfull0 + 8 * b, 1);
+      mbar_init(kvempty0 + 8 * b, 8);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  const DkvWalk walk{S, n_views, n_kpts, cdiv(n_kpts, HW_ROWS)};
+  const int wg = threadIdx.x / 128;
+
+  if (wg == 0) {  // the producer warp: thread 0 issues the TMA loads
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(HB_PRODUCER_REGS));
+    if (threadIdx.x >= 32) return;
+    const int lane = threadIdx.x;
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int i = blockIdx.x, u = 0; i < n_items; i += gridDim.x, ++u) {
+      int bh, kv, row0, n_live;
+      walk.item(i, bh, kv, row0, n_live);
+      const int b = u & 1;  // K/V buffer; its (u / 2)-th use waits for the one before
+      if (lane == 0) {
+        mbar_wait(kvempty0 + 8 * b, ((u >> 1) & 1) ^ 1);
+        mbar_expect_tx(kvfull0 + 8 * b, 4 * L::TILE);
+        for (int h = 0; h < 2; ++h) {
+          tma_load(base + L::kv_off + (4 * b + h) * L::TILE, &km, kvfull0 + 8 * b, row0 + 64 * h,
+                   bh);
+          tma_load(base + L::kv_off + (4 * b + 2 + h) * L::TILE, &vm, kvfull0 + 8 * b,
+                   row0 + 64 * h, bh);
+        }
+      }
+      const int n = walk.n_tiles(kv);
+      for (int t = 0; t < n; ++t) {
+        int x0, valid;
+        walk.tile(kv, t, x0, valid);
+        // rows lane and lane + 32 of the tile, loaded before the wait for the
+        // stage so that their latency passes while the consumers finish it
+        const size_t row = (size_t)bh * S + x0 + lane;
+        const bool w0 = lane < valid, w1 = lane + 32 < valid;
+        const float l0 = w0 ? lse[row] : 0.f, l1 = w1 ? lse[row + 32] : 0.f;
+        const float v0 = w0 ? dvec[row] : 0.f, v1 = w1 ? dvec[row + 32] : 0.f;
+        mbar_wait(empty0 + 8 * stage, phase ^ 1);
+        if (lane == 0) {
+          mbar_expect_tx(full0 + 8 * stage, 2 * L::TILE);
+          tma_load(base + L::q_off + stage * L::TILE, &qm, full0 + 8 * stage, x0, bh);
+          tma_load(base + L::do_off + stage * L::TILE, &dom, full0 + 8 * stage, x0, bh);
+        }
+        const uint32_t sc = base + L::sc_off + 4 * (stage * 2 * BK + lane);
+        sts_f32(sc, w0 ? l0 * kLog2e : INFINITY);
+        sts_f32(sc + 4 * 32, w1 ? l1 * kLog2e : INFINITY);
+        sts_f32(sc + 4 * BK, v0);
+        sts_f32(sc + 4 * (BK + 32), v1);
+        mbar_arrive(full0 + 8 * stage);  // releases the stores above
+        if (++stage == HB_STAGES) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+    }
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(HB_CONSUMER_REGS));
+  const int c = wg - 1;  // consumer c owns keys 64 c .. 64 c + 63 of a work item
+  const int tid = threadIdx.x - 128 * wg;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, tq = lane & 3;  // keys g, g + 8 of the warp's 16; columns 2 tq + {0, 1}
+  const int r = 64 * c + 16 * warp + g;    // this thread's keys r and r + 8 of an item
+  const float scale2 = scale * kLog2e;     // scores in base 2
+  float st[32], dpt[32], dka[R], dva[R];  // S^T, dP^T; dK, dV
+  uint32_t pa[16], da[16];  // bf16(P^T), bf16(dS^T): the sums' A operands
+  uint32_t kf[DH / 16][4], vf[DH / 16][4];  // K's and V's A fragments
+#pragma unroll
+  for (int e = 0; e < 32; ++e) st[e] = dpt[e] = 0.f;
+  int stage = 0, pstage = 0;  // the tile for the next S^T, dP^T; the last one
+  uint32_t phase = 0;
+  if (c == 1) turn_pass(1);  // consumer 0 takes the first turn
+
+  for (int i = blockIdx.x, u = 0; i < n_items; i += gridDim.x, ++u) {
+    int bh, kv, row0, n_live;
+    walk.item(i, bh, kv, row0, n_live);
+    const int b = u & 1;
+    const bool live = 64 * c < n_live;  // the same in the whole warpgroup
+    const uint32_t ks = base + L::kv_off + (4 * b + c) * L::TILE;  // K's half; V's 2 tiles on
+#pragma unroll
+    for (int e = 0; e < R; ++e) dka[e] = dva[e] = 0.f;
+
+    // S^T = K Q^T and dP^T = V dO^T of the tile in `stage`: DH / 16 k-steps of
+    // 32 bytes along the rows, the two products' steps interleaved (measured
+    // no slower than one product's chain after the other's)
+    auto issue_sd = [&]() {
+      const uint64_t qd = smem_desc(base + L::q_off + stage * L::TILE, H::layout, H::group);
+      const uint64_t od = smem_desc(base + L::do_off + stage * L::TILE, H::layout, H::group);
+#pragma unroll
+      for (int kk = 0; kk < DH / 16; ++kk) {
+        wgmma_rs<0>(st, kf[kk][0], kf[kk][1], kf[kk][2], kf[kk][3], qd + 2 * kk, kk > 0);
+        wgmma_rs<0>(dpt, vf[kk][0], vf[kk][1], vf[kk][2], vf[kk][3], od + 2 * kk, kk > 0);
+      }
+    };
+    // dV += bf16(P^T) dO and dK += bf16(dS^T) Q of the tile in `in`, their
+    // steps interleaved as in issue_sd
+    auto issue_sums = [&](int in) {
+      const uint64_t od = smem_desc(base + L::do_off + in * L::TILE, H::layout, H::group);
+      const uint64_t qd = smem_desc(base + L::q_off + in * L::TILE, H::layout, H::group);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const uint32_t step = (2 * H::group * j) >> 4;
+        wgmma_rs(dva, pa[4 * j], pa[4 * j + 1], pa[4 * j + 2], pa[4 * j + 3], od + step, 1);
+        wgmma_rs(dka, da[4 * j], da[4 * j + 1], da[4 * j + 2], da[4 * j + 3], qd + step, 1);
+      }
+    };
+    // p into st and ds into dpt, in place (keys r: elements 0, 1 of each 8-query
+    // block; r + 8: 2, 3), from the stage's LSE log2 e and dvec
+    auto p_ds = [&]() {
+      const uint32_t lt = base + L::sc_off + 4 * (stage * 2 * BK + 2 * tq);
+#pragma unroll
+      for (int nb = 0; nb < 8; ++nb) {
+        const float2 l2 = lds_f2(lt + 4 * 8 * nb);
+        const float2 d2 = lds_f2(lt + 4 * (BK + 8 * nb));
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float l = e ? l2.y : l2.x, dvy = e ? d2.y : d2.x;
+          const float p0 = ex2(fmaf(st[4 * nb + e], scale2, -l));
+          const float p1 = ex2(fmaf(st[4 * nb + 2 + e], scale2, -l));
+          st[4 * nb + e] = p0;
+          st[4 * nb + 2 + e] = p1;
+          dpt[4 * nb + e] = p0 * (dpt[4 * nb + e] - dvy);
+          dpt[4 * nb + 2 + e] = p1 * (dpt[4 * nb + 2 + e] - dvy);
+        }
+      }
+    };
+    // bf16(P^T) and bf16(dS^T) in the A layout of the sums (k-step j: query
+    // blocks 2j and 2j + 1)
+    auto pack = [&]() {
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int h = 0; h < 4; ++h) {
+          pa[4 * j + h] = cvt_bf16x2(st[8 * j + 2 * h], st[8 * j + 2 * h + 1]);
+          da[4 * j + h] = cvt_bf16x2(dpt[8 * j + 2 * h], dpt[8 * j + 2 * h + 1]);
+        }
+    };
+    auto next_stage = [&]() {
+      pstage = stage;
+      if (++stage == HB_STAGES) {
+        stage = 0;
+        phase ^= 1;
+      }
+    };
+
+    const int n = walk.n_tiles(kv);
+    mbar_wait(kvfull0 + 8 * b, (u >> 1) & 1);
+    if (live) {  // this warp's 16 keys, k-step kk: 16-byte chunks 2 kk, 2 kk + 1
+      const uint32_t row = 16 * warp + (lane & 15);
+#pragma unroll
+      for (int kk = 0; kk < DH / 16; ++kk) {
+        const uint32_t o = row * (2 * DH) + 16 * (2 * kk + (lane >> 4));
+        const uint32_t sw = o ^ (((o >> 7) & (DH / 8 - 1)) << 4);  // the TMA swizzle
+        ldsm_x4_at(kf[kk], ks + sw);
+        ldsm_x4_at(vf[kk], ks + 2 * L::TILE + sw);
+      }
+    }
+    if (lane == 0) mbar_arrive(kvempty0 + 8 * b);  // K, V are in registers
+    // S^T, dP^T of tile t queue behind the sums of tile t - 1, which go
+    // straight into dV and dK: one wait a tile. The skip of a warpgroup with
+    // no live key chooses between two loops: with the products under a branch
+    // in one loop, ptxas serialised every wgmma of the kernel (C7518, a
+    // wait it inserts on a path it cannot prove warpgroup-uniform).
+    if (live) {
+      for (int t = 0; t < n; ++t) {
+        mbar_wait(full0 + 8 * stage, phase);
+        turn_wait(1 + c);
+        wgmma_fence();
+        issue_sd();
+        wgmma_commit();
+        turn_pass(2 - c);
+        wgmma_wait<0>();  // S^T, dP^T of tile t; the sums of tile t - 1
+        fence_regs(st);
+        fence_regs(dpt);
+        fence_regs(dka);
+        fence_regs(dva);
+        if (t > 0 && lane == 0) mbar_arrive(empty0 + 8 * pstage);
+        p_ds();
+        pack();
+        wgmma_fence();
+        issue_sums(stage);
+        wgmma_commit();
+        next_stage();
+      }
+      wgmma_wait<0>();
+      fence_regs(dka);
+      fence_regs(dva);
+    } else {  // the turns and the stages' arrivals only
+      for (int t = 0; t < n; ++t) {
+        mbar_wait(full0 + 8 * stage, phase);
+        turn_wait(1 + c);
+        turn_pass(2 - c);
+        if (t > 0 && lane == 0) mbar_arrive(empty0 + 8 * pstage);
+        next_stage();
+      }
+    }
+    if (lane == 0) mbar_arrive(empty0 + 8 * pstage);
+
+    if (live) {
+      bf16* dkb = dk + ((size_t)bh * S + row0) * DH;
+      bf16* dvb = dv + ((size_t)bh * S + row0) * DH;
+#pragma unroll
+      for (int d = 0; d < DH / 8; ++d) {
+        const int col = 8 * d + 2 * tq;
+        if (r < n_live) {
+          *reinterpret_cast<__nv_bfloat162*>(dkb + (size_t)r * DH + col) =
+              __floats2bfloat162_rn(dka[4 * d] * scale, dka[4 * d + 1] * scale);
+          *reinterpret_cast<__nv_bfloat162*>(dvb + (size_t)r * DH + col) =
+              __floats2bfloat162_rn(dva[4 * d], dva[4 * d + 1]);
+        }
+        if (r + 8 < n_live) {
+          *reinterpret_cast<__nv_bfloat162*>(dkb + (size_t)(r + 8) * DH + col) =
+              __floats2bfloat162_rn(dka[4 * d + 2] * scale, dka[4 * d + 3] * scale);
+          *reinterpret_cast<__nv_bfloat162*>(dvb + (size_t)(r + 8) * DH + col) =
+              __floats2bfloat162_rn(dva[4 * d + 2], dva[4 * d + 3]);
+        }
+      }
+    }
+  }
+  if (c == 0) turn_wait(1);  // the turn consumer 1 passed after its last products
 }
 
 // Above 48 KB a block's shared memory is dynamic only; the carveout asks for the
@@ -1374,7 +1373,7 @@ bool make_map(CUtensorMap* map, const void* ptr, int BH, int S, int DH) {
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-bool make_maps(CUtensorMap (&maps)[3], const void* q, const void* k, const void* v, int BH,
+bool make_maps(CUtensorMap* maps, const void* q, const void* k, const void* v, int BH,
                int S, int DH) {
   return make_map(&maps[0], q, BH, S, DH) && make_map(&maps[1], k, BH, S, DH) &&
          make_map(&maps[2], v, BH, S, DH);
@@ -1401,48 +1400,50 @@ int launch_attn(const void* q, const void* k, const void* v, bf16* o, int BH, in
   return launch_attn_mode<DH, kCross>(q, k, v, o, BH, S, n_kpts, scale, st);
 }
 
-// lse == nullptr: cross_attn_fwd_bf16 (the Hopper kernel); else
-// cross_attn_fwd_lse_bf16 (the mma.sync kernel).
+// lse == nullptr: cross_attn_fwd_bf16; else cross_attn_fwd_lse_bf16 (both the
+// Hopper kernel).
 template <int DH>
 int launch_cross(const void* q, const void* k, const void* v, bf16* o, float* lse, int BH,
                  int S, int n_views, int n_kpts, float scale, cudaStream_t st) {
+  CUtensorMap maps[3];
+  if (!make_maps(maps, q, k, v, BH, S, DH)) return -2;
+  constexpr size_t bytes = HSmem<DH>::bytes;
+  const int items = BH * n_views * ((n_kpts + HW_ROWS - 1) / HW_ROWS);
+  const int grid = min(items, sm_count());
   if (lse == nullptr) {
-    CUtensorMap maps[3];
-    if (!make_maps(maps, q, k, v, BH, S, DH)) return -2;
-    constexpr size_t bytes = HSmem<DH>::bytes;
     prepare_smem(cross_attn_fwd_bf16_kernel<DH>, bytes);
-    const int items = BH * n_views * ((n_kpts + HW_ROWS - 1) / HW_ROWS);
-    cross_attn_fwd_bf16_kernel<DH><<<min(items, sm_count()), HW_THREADS, bytes, st>>>(
+    cross_attn_fwd_bf16_kernel<DH><<<grid, HW_THREADS, bytes, st>>>(
         maps[0], maps[1], maps[2], o, S, n_views, n_kpts, scale, items);
-    return 0;
+  } else {
+    prepare_smem(cross_attn_fwd_lse_bf16_kernel<DH>, bytes);
+    cross_attn_fwd_lse_bf16_kernel<DH><<<grid, HW_THREADS, bytes, st>>>(
+        maps[0], maps[1], maps[2], o, lse, S, n_views, n_kpts, scale, items);
   }
-  constexpr size_t bytes = Smem<DH>::bytes;
-  const int tiles = (n_kpts + BQ - 1) / BQ;
-  prepare_smem(cross_attn_fwd_lse_bf16_kernel<DH>, bytes);
-  cross_attn_fwd_lse_bf16_kernel<DH><<<dim3(n_views * tiles, BH), NT, bytes, st>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      o, lse, S, n_views, n_kpts, tiles, scale);
   return 0;
 }
 
-// dk == nullptr: the dq kernel (into dq); else the dk/dv kernel (into dk, dv).
+// dk == nullptr: the dq kernel (into dq); else the dk/dv kernel (into dk, dv,
+// the Hopper kernel: -2 where a TMA map cannot be made).
 template <int DH>
-void launch_bwd(const bf16* q, const bf16* k, const bf16* v, const bf16* dout,
-                const float* lse, const float* dvec, bf16* dq, bf16* dk, bf16* dv, int BH,
-                int S, int n_views, int n_kpts, float scale, cudaStream_t st) {
-  const int tiles = (n_kpts + BQ - 1) / BQ;
-  const dim3 grid(n_views * tiles, BH);
+int launch_bwd(const bf16* q, const bf16* k, const bf16* v, const bf16* dout,
+               const float* lse, const float* dvec, bf16* dq, bf16* dk, bf16* dv, int BH,
+               int S, int n_views, int n_kpts, float scale, cudaStream_t st) {
   if (dk == nullptr) {
+    const int tiles = (n_kpts + BQ - 1) / BQ;
     constexpr size_t bytes = BwdSmem<DH>::bytes;
     prepare_smem(cross_attn_bwd_dq_bf16_kernel<DH>, bytes);
-    cross_attn_bwd_dq_bf16_kernel<DH><<<grid, NT, bytes, st>>>(
+    cross_attn_bwd_dq_bf16_kernel<DH><<<dim3(n_views * tiles, BH), NT, bytes, st>>>(
         q, k, v, dout, lse, dvec, dq, S, n_views, n_kpts, tiles, scale);
-  } else {
-    constexpr size_t bytes = BwdSmem<DH>::bytes_scalars;
-    prepare_smem(cross_attn_bwd_dkv_bf16_kernel<DH>, bytes);
-    cross_attn_bwd_dkv_bf16_kernel<DH><<<grid, NT, bytes, st>>>(
-        q, k, v, dout, lse, dvec, dk, dv, S, n_views, n_kpts, tiles, scale);
+    return 0;
   }
+  CUtensorMap maps[4];
+  if (!make_maps(maps, q, k, v, BH, S, DH) || !make_map(&maps[3], dout, BH, S, DH)) return -2;
+  constexpr size_t bytes = BSmem<DH>::bytes;
+  prepare_smem(cross_attn_bwd_dkv_bf16_kernel<DH>, bytes);
+  const int items = BH * n_views * cdiv(n_kpts, HW_ROWS);
+  cross_attn_bwd_dkv_bf16_kernel<DH><<<min(items, sm_count()), HW_THREADS, bytes, st>>>(
+      maps[0], maps[1], maps[2], maps[3], lse, dvec, dk, dv, S, n_views, n_kpts, scale, items);
+  return 0;
 }
 
 // {blocks per SM, registers, local (spill) bytes per thread, dynamic shared
@@ -1476,14 +1477,13 @@ int kernel_info_dh(int which, int* info) {
     case 1: return kernel_info(attn_fwd_bf16_kernel<DH, kSelf>, hw, HW_THREADS, HW_ROWS, 1, info);
     case 2: return kernel_info(attn_fwd_bf16_kernel<DH, kCross>, hw, HW_THREADS, HW_ROWS, 1, info);
     case 3: return kernel_info(cross_attn_fwd_bf16_kernel<DH>, hw, HW_THREADS, HW_ROWS, 1, info);
-    case 4:
-      return kernel_info(cross_attn_fwd_lse_bf16_kernel<DH>, Smem<DH>::bytes, NT, BQ, 0, info);
+    case 4: return kernel_info(cross_attn_fwd_lse_bf16_kernel<DH>, hw, HW_THREADS, HW_ROWS, 1, info);
     case 5:
       return kernel_info(cross_attn_bwd_dq_bf16_kernel<DH>, BwdSmem<DH>::bytes, NT, BQ, 0,
                          info);
     case 6:
-      return kernel_info(cross_attn_bwd_dkv_bf16_kernel<DH>, BwdSmem<DH>::bytes_scalars, NT, BQ,
-                         0, info);
+      return kernel_info(cross_attn_bwd_dkv_bf16_kernel<DH>, BSmem<DH>::bytes, HW_THREADS,
+                         HW_ROWS, 1, info);
     default: return -1;
   }
 }
@@ -1517,13 +1517,14 @@ int cross_bwd(const void* q, const void* k, const void* v, const void* dout,
              *vb = static_cast<const bf16*>(v), *db = static_cast<const bf16*>(dout);
   bf16 *dqb = static_cast<bf16*>(dq), *dkb = static_cast<bf16*>(dk),
        *dvb = static_cast<bf16*>(dv);
+  int rc;
   switch (dh) {
-    case 16: launch_bwd<16>(qb, kb, vb, db, lse, dvec, dqb, dkb, dvb, BH, S, n_views, n_kpts, scale, st); break;
-    case 32: launch_bwd<32>(qb, kb, vb, db, lse, dvec, dqb, dkb, dvb, BH, S, n_views, n_kpts, scale, st); break;
-    case 64: launch_bwd<64>(qb, kb, vb, db, lse, dvec, dqb, dkb, dvb, BH, S, n_views, n_kpts, scale, st); break;
+    case 16: rc = launch_bwd<16>(qb, kb, vb, db, lse, dvec, dqb, dkb, dvb, BH, S, n_views, n_kpts, scale, st); break;
+    case 32: rc = launch_bwd<32>(qb, kb, vb, db, lse, dvec, dqb, dkb, dvb, BH, S, n_views, n_kpts, scale, st); break;
+    case 64: rc = launch_bwd<64>(qb, kb, vb, db, lse, dvec, dqb, dkb, dvb, BH, S, n_views, n_kpts, scale, st); break;
     default: return -1;
   }
-  return (int)cudaGetLastError();
+  return rc != 0 ? rc : (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -1531,8 +1532,8 @@ int cross_bwd(const void* q, const void* k, const void* v, const void* dout,
 extern "C" {
 
 // Each returns 0 on success, -1 for an unsupported head width, mode or shape, -2
-// where a TMA map cannot be made (attn_fwd_bf16, cross_attn_fwd_bf16), otherwise
-// the cudaGetLastError() code of the launch.
+// where a TMA map cannot be made (every kernel but cross_attn_bwd_dq_bf16),
+// otherwise the cudaGetLastError() code of the launch.
 int attn_fwd_bf16(const void* q, const void* k, const void* v, void* o, int BH, int S,
                   int dh, int n_kpts, int mode, float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);

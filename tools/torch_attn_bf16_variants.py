@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""What holds the Hopper bf16 forward attention kernels back: device times of
-variants of `ops/csrc/attention_bf16_cuda.cu`, on one NVIDIA GPU.
+"""What holds the Hopper bf16 attention kernels back: device times of variants
+of `ops/csrc/attention_bf16_cuda.cu`, on one NVIDIA GPU.
 
-    python3 tools/torch_attn_bf16_variants.py [--reps N]
+    python3 tools/torch_attn_bf16_variants.py [--kernel fwd|dkv] [--reps N]
+                                              [--only base,name,...]
 
 Builds the source as it is (`base`) and variants made from it by text
 substitution, each with the port's nvcc flags into `build/variants/`, then
@@ -19,9 +20,32 @@ rounds), on seeded bfloat16 q, k, v:
 - `no_pv`: P V skipped (Q K^T and the softmax remain).
 
 The last two compute something else; the first four must give `base`'s bits
-(checked). Prints one JSON line per variant and shape, then the card's name and
-power limit. Exits non-zero without a CUDA device or when a variant that must
-keep the bits does not. Imports no JAX.
+(checked).
+
+`--kernel dkv` times `cross_attn_bwd_dkv_bf16` instead, at 32 x 2000 x 64 (the
+bf16 training shape), 32 x 5120 x 64 and 32 x 2048 x 64, on seeded bfloat16 q,
+k, v, dO with the plain forward's LSE and dvec = rowsum(dO O), through these
+variants:
+
+- `grid_items`, `stages2`, `stages6`, `no_turns`: as above (its HB_STAGES);
+- `chains`: each product's k-steps as one chain after the other instead of
+  interleaved with its partner's;
+- `no_skip`: a consumer warpgroup whose 64 keys all lie past the view's end
+  computes them as a live one does (not stored) instead of taking the turns
+  only;
+- `no_pds`: p and ds skipped (the products and the bf16 packing remain);
+  `no_sums`, `no_sd`: the sums (dV, dK) or the scores (S^T, dP^T) not
+  issued; `sd_only`: only the scores' products.
+
+The first four must give `base`'s bits; every variant that computes dk and dv
+is held to the backward's gate (`cross_attn_bwd_bf16_slack`) on the first
+slices of each shape, and its reading is printed, with its worst reading over
+the ragged shapes of the card tests (V = 2, 3, 5; K = 1 .. 400; dh = 16, 32,
+64).
+
+Prints one JSON line per variant and shape, then the card's name and power
+limit. Exits non-zero without a CUDA device, when a variant that must keep
+the bits does not, or when one held to the gate fails it. Imports no JAX.
 """
 
 import argparse
@@ -38,6 +62,8 @@ ROOT = Path(__file__).resolve().parents[1]
 SHAPES = (("attn_fwd_bf16", 160, 1, 1024), ("attn_fwd_bf16", 160, 1, 2048),
           ("attn_fwd_bf16", 64, 1, 1024), ("cross_attn_fwd_bf16", 32, 5, 1024))
 SAME_BITS = ("grid_items", "stages2", "stages6", "no_turns")
+DKV_SHAPES = ((32, 5, 400), (32, 5, 1024), (32, 2, 1024))
+DKV_OFF_GATE = ("no_pds", "no_sums", "no_sd", "sd_only")
 
 
 def _sub(text, old, new):
@@ -61,6 +87,45 @@ def variants(src):
     }
 
 
+def dkv_variants(src):
+    stages = "constexpr int HB_STAGES = 4;"
+    turns = _sub(_sub(src, 'asm volatile("bar.sync %0, 256;\\n" ::"r"(id) : "memory");', ""),
+                 'asm volatile("bar.arrive %0, 256;\\n" ::"r"(id) : "memory");', "")
+    pds_at = "auto p_ds = [&]() {"
+    sd_at = "    auto issue_sd = [&]() {"
+    sums_at = "auto issue_sums = [&](int in) {"
+    # the two products' k-steps interleaved, as built; `chains` closes the loop
+    # after the first product's step and opens one for its partner's
+    sd_split = "qd + 2 * kk, kk > 0);\n        wgmma_rs<0>(dpt,"
+    next_kk = "\n      }\n#pragma unroll\n      for (int kk = 0; kk < DH / 16; ++kk) {\n"
+    sums_split = "od + step, 1);\n        wgmma_rs(dka,"
+    next_j = ("\n      }\n#pragma unroll\n      for (int j = 0; j < 4; ++j) {\n"
+              "        const uint32_t step = (2 * H::group * j) >> 4;\n")
+
+    def skip(text, *anchors):
+        for a in anchors:
+            text = _sub(text, a, a + "\n return;")
+        return text
+
+    return {
+        "base": src,
+        "grid_items": _sub(src, "<<<min(items, sm_count()), HW_THREADS, bytes, st>>>(\n"
+                           "      maps[0], maps[1], maps[2], maps[3]",
+                           "<<<items, HW_THREADS, bytes, st>>>(\n"
+                           "      maps[0], maps[1], maps[2], maps[3]"),
+        "stages2": _sub(src, stages, "constexpr int HB_STAGES = 2;"),
+        "stages6": _sub(src, stages, "constexpr int HB_STAGES = 6;"),
+        "no_turns": turns,
+        "chains": _sub(_sub(src, sd_split, sd_split.replace("\n", next_kk, 1)),
+                       sums_split, sums_split.replace("\n", next_j, 1)),
+        "no_skip": _sub(src, "const bool live = 64 * c < n_live;", "const bool live = true;"),
+        "no_pds": skip(src, pds_at),
+        "no_sums": skip(src, sums_at),
+        "no_sd": skip(src, sd_at),
+        "sd_only": skip(src, sums_at, pds_at),
+    }
+
+
 def cuda_ms(fn, reps):
     import torch
 
@@ -78,7 +143,9 @@ def cuda_ms(fn, reps):
 
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--kernel", choices=("fwd", "dkv"), default="fwd")
     parser.add_argument("--reps", type=int, default=20)
+    parser.add_argument("--only", help="comma-separated variants to build (base always)")
     args = parser.parse_args(argv)
     import torch
 
@@ -89,9 +156,13 @@ def main(argv=None):
     from e2e_multi_view_matching_tpu_torch.ops import attention_cuda as ac
     from e2e_multi_view_matching_tpu_torch.ops import cuda_build
 
-    out_dir = ROOT / "build" / "variants"
+    out_dir = ROOT / "build" / "variants" / args.kernel
     out_dir.mkdir(parents=True, exist_ok=True)
     src = (cuda_build.CSRC / "attention_bf16_cuda.cu").read_text()
+    made = variants(src) if args.kernel == "fwd" else dkv_variants(src)
+    if args.only:
+        keep = {"base", *args.only.split(",")}
+        made = {n: t for n, t in made.items() if n in keep}
 
     def build(item):
         name, text = item
@@ -105,8 +176,12 @@ def main(argv=None):
 
     t0 = time.perf_counter()
     with ThreadPoolExecutor() as ex:
-        libs = dict(ex.map(build, variants(src).items()))
+        libs = dict(ex.map(build, made.items()))
     print(json.dumps({"build_seconds": time.perf_counter() - t0}), flush=True)
+    if args.kernel == "dkv":
+        failed = time_dkv(ac, libs, args.reps)
+        print(json.dumps({"card": card_line()}), flush=True)
+        return 1 if failed else 0
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
     data = {shape: [torch.randn(shape[1], shape[2] * shape[3], 64, generator=g,
@@ -138,11 +213,118 @@ def main(argv=None):
         print(json.dumps({"variant": name, "kernel": shape[0],
                           "shape": [shape[1], shape[2] * shape[3], 64], "ms": ms,
                           "same_bits_as_base": same}), flush=True)
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+    print(json.dumps({"card": card_line()}), flush=True)
+    return 1 if failed else 0
+
+
+def card_line():
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True,
                           check=True).stdout.strip().splitlines()[0]
-    print(json.dumps({"card": card}), flush=True)
-    return 1 if failed else 0
+
+
+def _dkv_lib(ac, path):
+    lib = ctypes.CDLL(str(path))
+    for fn, (restype, argtypes) in ac._BF16_SIGNATURES.items():
+        getattr(lib, fn).restype, getattr(lib, fn).argtypes = restype, argtypes
+    return lib
+
+
+def ragged_gates(ac, libs):
+    """{variant: (worst backward-gate reading of dk and dv, (V, K, dh))} over
+    the card tests' ragged shapes, on their inputs (seeded as
+    tests/test_torch_kernels_cuda.py seeds them)."""
+    import torch
+
+    dev = torch.device("cuda")
+    loaded = {n: _dkv_lib(ac, p) for n, p in libs.items()}
+    worst = {n: (0.0, None) for n in libs}
+    for K in (1, 15, 16, 17, 63, 64, 65, 127, 128, 129, 400):
+        for V in (2, 3, 5):
+            for dh in (16, 32, 64):
+                g = torch.Generator(device=dev).manual_seed(1000 * K + 10 * V + dh)
+                BH = 1 if V * K < 80 else 3
+                q, k, v = (2 * torch.randn(BH, V * K, dh, generator=g, device=dev)
+                           for _ in range(3))
+                q, k, v = q.bfloat16(), k.bfloat16(), v.bfloat16()
+                g = torch.Generator(device=dev).manual_seed(7 + 1000 * K + 10 * V + dh)
+                do = torch.randn(q.shape, generator=g, device=dev).bfloat16()
+                scale = 1.0 / dh ** 0.5
+                o, lse = ac.cross_attn_fwd_lse_plain(q, k, v, V, K, scale)
+                dvec = (do.float() * o.float()).sum(-1) + torch.randn(lse.shape, generator=g,
+                                                                      device=dev)
+                args = (q, k, v, do, lse, dvec, V, K, scale)
+                _, rk, rv = ac.cross_attn_bwd_plain(*args)
+                _, sk, sv = ac.cross_attn_bwd_bf16_slack(*args)
+                for name, lib in loaded.items():
+                    dk, dv = torch.empty_like(k), torch.empty_like(v)
+                    rc = lib.cross_attn_bwd_dkv_bf16(
+                        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+                        dvec.data_ptr(), dk.data_ptr(), dv.data_ptr(), BH, V * K, dh, V, K,
+                        scale, torch.cuda.current_stream().cuda_stream)
+                    if rc != 0:
+                        raise RuntimeError(f"{name}: cross_attn_bwd_dkv_bf16 launch failed")
+                    e = max(ac.bf16_ulp_error(dk, rk, *sk), ac.bf16_ulp_error(dv, rv, *sv))
+                    if e > worst[name][0]:
+                        worst[name] = (e, (V, K, dh))
+    return worst
+
+
+def time_dkv(ac, libs, reps):
+    """Times every dk/dv variant at DKV_SHAPES, two rounds; True if one failed
+    its bits or its gate."""
+    import torch
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(0)
+    data = {}
+    for BH, V, K in DKV_SHAPES:
+        q, k, v, do = (torch.randn(BH, V * K, 64, generator=g, device=dev).bfloat16()
+                       for _ in range(4))
+        nb = max(1, min(BH, int(2 ** 28 // (V * K) ** 2)))
+        o, lse = ac.cross_attn_fwd_lse(q, k, v, V, K, 0.125)  # the tree's own LSE forward
+        dvec = (do.float() * o.float()).sum(-1)
+        sub = (q[:nb], k[:nb], v[:nb], do[:nb], lse[:nb], dvec[:nb], V, K, 0.125)
+        _, rk, rv = ac.cross_attn_bwd_plain(*sub)
+        _, sk, sv = ac.cross_attn_bwd_bf16_slack(*sub)
+        data[(BH, V, K)] = (q, k, v, do, lse, dvec, nb, (rk, rv, sk, sv))
+        del o
+    times, outs = {}, {}
+    for _ in range(2):
+        for name, path in libs.items():
+            lib = _dkv_lib(ac, path)
+            for shape, (q, k, v, do, lse, dvec, nb, _) in data.items():
+                BH, V, K = shape
+                dk, dv = torch.empty_like(k), torch.empty_like(v)
+                st = torch.cuda.current_stream().cuda_stream
+                ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+                        dvec.data_ptr(), dk.data_ptr(), dv.data_ptr())
+                run = lambda: lib.cross_attn_bwd_dkv_bf16(*ptrs, BH, V * K, 64, V, K, 0.125, st)  # noqa: E731
+                if run() != 0:
+                    raise RuntimeError(f"{name}: cross_attn_bwd_dkv_bf16 launch failed")
+                torch.cuda.synchronize()
+                outs.setdefault((name, shape), (dk.clone(), dv.clone()))
+                times.setdefault((name, shape), []).append(cuda_ms(run, reps))
+    failed = False
+    ragged = ragged_gates(ac, {n: p for n, p in libs.items() if n not in DKV_OFF_GATE})
+    for name, worst in ragged.items():
+        failed |= not worst[0] <= 1.0
+        print(json.dumps({"variant": name, "kernel": "cross_attn_bwd_dkv_bf16",
+                          "ragged_gate_worst": worst[0], "at": worst[1]}), flush=True)
+    for (name, shape), ms in times.items():
+        dk, dv = outs[(name, shape)]
+        bk, bv = outs[("base", shape)]
+        same = bool(torch.equal(dk, bk) and torch.equal(dv, bv))
+        rec = {"variant": name, "kernel": "cross_attn_bwd_dkv_bf16",
+               "shape": [shape[0], shape[1] * shape[2], 64], "ms": ms, "same_bits_as_base": same}
+        failed |= name in SAME_BITS and not same
+        if name not in DKV_OFF_GATE:
+            nb, (rk, rv, sk, sv) = data[shape][6], data[shape][7]
+            rec["ulp_gate"] = max(ac.bf16_ulp_error(dk[:nb], rk, *sk),
+                                  ac.bf16_ulp_error(dv[:nb], rv, *sv))
+            failed |= not rec["ulp_gate"] <= 1.0
+        print(json.dumps(rec), flush=True)
+    return failed
 
 
 if __name__ == "__main__":
