@@ -9,8 +9,9 @@ Phases, each fatal on failure:
                    in an attention kernel (float32 or bfloat16) fails it, and
                    so does a Hopper kernel (`attn_fwd_bf16`,
                    `cross_attn_fwd_bf16`, `cross_attn_fwd_lse_bf16`,
-                   `cross_attn_bwd_dkv_bf16`) whose SASS (cuobjdump) lacks
-                   HGMMA or UTMALDG; so does a ptxas note that it
+                   `cross_attn_bwd_dq_bf16`, `cross_attn_bwd_dkv_bf16`: every
+                   bf16 kernel) whose SASS (cuobjdump) lacks HGMMA or
+                   UTMALDG; so does a ptxas note that it
                    serialised a kernel's wgmma instructions (a wait it
                    inserted after each product).
   2. device     -- print the card's name and power limit (nvidia-smi).
@@ -47,8 +48,10 @@ Phases, each fatal on failure:
                    (the backward's widened by the bfloat16 roundings of p and
                    ds that may flip), the same bits on two runs, beside the
                    twin, SDPA on bfloat16 (forward, and its backward) and the
-                   float32 kernels. `sinkhorn_scaling` at sharp pair scores
-                   (a seeded two-view matcher's final projection x 4): the
+                   float32 kernels; dq and dk/dv with their design floors (3
+                   and 4 products a pair), their launch plans and their sum
+                   beside SDPA's backward. `sinkhorn_scaling` at sharp pair
+                   scores (a seeded two-view matcher's final projection x 4): the
                    kernel, its twin and the float32 log domain against the
                    float64 log domain (a measurement).
                    Bounds: the largest of FP32 (bf16: tensor-core bf16)
@@ -229,7 +232,8 @@ SPILL_FREE_SOURCES = ("attention_cuda", "attention_bf16_cuda")
 # The Hopper kernels (TMA loads, wgmma products): the build phase fails unless
 # their SASS holds both.
 HOPPER_KERNELS = ("attn_fwd_bf16_kernel", "cross_attn_fwd_bf16_kernel",
-                  "cross_attn_fwd_lse_bf16_kernel", "cross_attn_bwd_dkv_bf16_kernel")
+                  "cross_attn_fwd_lse_bf16_kernel", "cross_attn_bwd_dq_bf16_kernel",
+                  "cross_attn_bwd_dkv_bf16_kernel")
 
 
 class SmokeFailure(RuntimeError):
@@ -356,8 +360,9 @@ def _occupancy(name, BH, S, n_views, n_kpts, dh, mode):
     waves on this card of an attention kernel at one shape, from the CUDA
     runtime. The grid: row tiles of each view for the cross kernels (query
     rows; key rows for dk/dv), of all S rows for `attn_fwd`; the Hopper
-    kernels' persistent grid from `hopper_fwd_plan` (`hopper_dkv_plan` for
-    dk/dv), whose waves are the work items a resident block walks."""
+    kernels' persistent grid from `hopper_fwd_plan` (`hopper_dq_plan`,
+    `hopper_dkv_plan` for dq, dk/dv), whose waves are the work items a
+    resident block walks."""
     import torch
 
     from e2e_multi_view_matching_tpu_torch.ops import attention_cuda as ac
@@ -365,11 +370,15 @@ def _occupancy(name, BH, S, n_views, n_kpts, dh, mode):
     info = ac.kernel_info(name, dh, mode)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     extra = {}
-    if name in ac.HOPPER_FWD or name == ac.HOPPER_DKV:
+    if name in ac.HOPPER_FWD or name in (ac.HOPPER_DQ, ac.HOPPER_DKV):
         if name == ac.HOPPER_DKV:
             plan = ac.hopper_dkv_plan(BH, S, dh, n_views, n_kpts, sms=sms)
             extra = {"query_tiles_per_item": plan["query_tiles"],
                      "key_rows_computed_per_stored": plan["rows_per_stored"]}
+        elif name == ac.HOPPER_DQ:
+            plan = ac.hopper_dq_plan(BH, S, dh, n_views, n_kpts, sms=sms)
+            extra = {"key_tiles_per_item": plan["key_tiles"],
+                     "query_rows_computed_per_stored": plan["rows_per_stored"]}
         else:
             plan = ac.hopper_fwd_plan(name, BH, S, dh, n_views, n_kpts, sms=sms)
         blocks, waves = plan["grid"], plan["waves"]
@@ -808,8 +817,11 @@ def _cross_attn_train_bf16_records(g, f32_records):
                 measured.update(lse_abs_err=lse_err, lse_tol=CROSS_LSE_TOL,
                                 design_floor_ms=8.0 * pairs * dh / PEAK_BF16_OPS * 1e3)
                 check(lse_err <= CROSS_LSE_TOL, f"{where}: LSE error {lse_err}")
-            else:
-                measured["plain_and_library_cover"] = "dq, dk and dv together"
+            else:  # the backward's design floor: its products a pair on the tensor cores
+                measured.update(plain_and_library_cover="dq, dk and dv together",
+                                design_floor_ms=2.0 * prods * pairs * dh / PEAK_BF16_OPS * 1e3)
+            if name == names[1]:
+                measured["dq_plus_dkv_ms"] = ms[names[1]] + ms[names[2]]  # beside library_ms
             if nb < BH:
                 measured["compared_batch"] = [nb, BH]
             check(measured["spill_bytes"] == 0, f"{where}: {measured['spill_bytes']} spill bytes")

@@ -203,11 +203,15 @@ HOPPER_ROWS = 128  # query rows of a work item, 64 a consumer warpgroup
 HOPPER_KEYS = 64  # keys a K/V tile
 HOPPER_STAGES = 4  # K/V tiles in flight
 SMEM_BYTES = 227 * 1024  # a block's shared memory on an H100
-# The Hopper dk/dv kernel (`cross_attn_bwd_dkv_bf16`: HB_STAGES, BSmem,
-# DkvWalk): the same block shape, a work item of 128 key rows, 4 stages
-# of 64 query rows (Q, dO, their LSE and dvec).
+# The Hopper backward kernels (BwdWalk): the same block shape. dk/dv
+# (`cross_attn_bwd_dkv_bf16`: HB_STAGES, BSmem): a work item of 128 key rows, 4
+# stages of 64 query rows (Q, dO, their LSE and dvec). dq
+# (`cross_attn_bwd_dq_bf16`: HQ_STAGES, DqSmem): a work item of 128 query rows,
+# 4 stages of 64 keys (K, V).
 HOPPER_DKV = "cross_attn_bwd_dkv_bf16"
 HOPPER_DKV_STAGES = 4
+HOPPER_DQ = "cross_attn_bwd_dq_bf16"
+HOPPER_DQ_STAGES = 4
 
 
 def _cdiv(a, b):
@@ -242,44 +246,75 @@ def hopper_fwd_plan(name, BH, S, dh, n_views=1, n_kpts=None, sms=132):
             "items": items, "key_tiles": key_tiles, "grid": grid, "waves": items / grid}
 
 
-def hopper_dkv_plan(BH, S, dh, n_views, n_kpts, sms=132):
-    """Launch plan and walk of the Hopper dk/dv kernel (`cross_attn_bwd_dkv_bf16`)
-    on (BH, S, dh), as its C entry point makes them: {threads, tile_rows (key
-    rows of a work item), query_rows (a streamed tile's), stages, swizzle_bytes,
-    shared_bytes, items, grid (persistent: min(items, sms)), waves (items a
-    block), query_tiles (of each view's items, by view), rows_per_stored (key
-    rows computed per key row stored: a consumer warpgroup whose 64 keys all lie
-    past the view's end computes nothing), walk}. `walk` lists one slice's work
-    items in the order the kernel walks them: [(row0, n_live, [(x0, n_valid),
-    ...])]; the item owns key rows row0 .. row0 + n_live - 1 and streams query
-    tiles of 64 rows from x0, of which the first n_valid weigh (the rest are the
-    own view's, the next view's or past S, and weigh 0)."""
+def _bwd_walk(S, dh, n_views, n_kpts):
+    """The Hopper backward kernels' walk of one slice (BwdWalk): [(row0, n_live,
+    [(x0, n_valid), ...])] in the order the kernels take the work items; the
+    item owns rows row0 .. row0 + n_live - 1 of one view (128 rows computed)
+    and streams the other views' rows in tiles of 64 from x0, of which the
+    first n_valid weigh (the rest are the own view's, the next view's or past
+    S, and weigh 0), as the ranges before and after the own view. Also
+    (streamed tiles of each view's items, rows computed per row stored: a
+    consumer warpgroup whose 64 rows all lie past the view's end computes
+    nothing)."""
     if dh not in _HEAD_DIMS:
         raise ValueError(f"the attention kernels take head widths {_HEAD_DIMS}")
     if n_views < 2 or n_kpts < 1 or S != n_views * n_kpts:
         raise ValueError("the cross-view kernels take n_views >= 2 and S = n_views * n_kpts")
     K, T = n_kpts, HOPPER_KEYS
 
-    def tiles(kv):  # the ranges before and after the own view
-        before = [(x0, min(T, kv * K - x0)) for x0 in range(0, kv * K, T)]
-        after = [(x0, min(T, S - x0)) for x0 in range(kv * K + K, S, T)]
+    def tiles(w):  # the ranges before and after the own view
+        before = [(x0, min(T, w * K - x0)) for x0 in range(0, w * K, T)]
+        after = [(x0, min(T, S - x0)) for x0 in range(w * K + K, S, T)]
         return before + after
 
-    walk = [(kv * K + r0, min(HOPPER_ROWS, K - r0), tiles(kv))
-            for kv in range(n_views) for r0 in range(0, K, HOPPER_ROWS)]
+    walk = [(w * K + r0, min(HOPPER_ROWS, K - r0), tiles(w))
+            for w in range(n_views) for r0 in range(0, K, HOPPER_ROWS)]
+    computed = sum(64 * _cdiv(n_live, 64) for _, n_live, _ in walk)
+    return walk, [len(tiles(w)) for w in range(n_views)], computed / S
+
+
+def hopper_dkv_plan(BH, S, dh, n_views, n_kpts, sms=132):
+    """Launch plan and walk of the Hopper dk/dv kernel (`cross_attn_bwd_dkv_bf16`)
+    on (BH, S, dh), as its C entry point makes them: {threads, tile_rows (key
+    rows of a work item), query_rows (a streamed tile's), stages, swizzle_bytes,
+    shared_bytes, items, grid (persistent: min(items, sms)), waves (items a
+    block), query_tiles (of each view's items, by view), rows_per_stored (key
+    rows computed per key row stored), walk}. `walk` (`_bwd_walk`) lists one
+    slice's work items: each owns key rows and streams query tiles."""
+    walk, query_tiles, rows_per_stored = _bwd_walk(S, dh, n_views, n_kpts)
     items = BH * len(walk)
-    tile = T * 2 * dh
+    tile = HOPPER_KEYS * 2 * dh
     # two K/V buffers of four tiles, the Q and dO stages, a stage's 128 floats,
     # 12 mbarriers, 1024 B of alignment
-    shared = (1024 + (8 + 2 * HOPPER_DKV_STAGES) * tile + HOPPER_DKV_STAGES * 2 * T * 4
+    shared = (1024 + (8 + 2 * HOPPER_DKV_STAGES) * tile + HOPPER_DKV_STAGES * 2 * HOPPER_KEYS * 4
               + 8 * (2 * HOPPER_DKV_STAGES + 4))
-    computed = sum(64 * _cdiv(n_live, 64) for _, n_live, _ in walk)
     grid = min(items, sms)
-    return {"threads": HOPPER_THREADS, "tile_rows": HOPPER_ROWS, "query_rows": T,
+    return {"threads": HOPPER_THREADS, "tile_rows": HOPPER_ROWS, "query_rows": HOPPER_KEYS,
             "stages": HOPPER_DKV_STAGES, "swizzle_bytes": 2 * dh, "shared_bytes": shared,
-            "items": items, "grid": grid, "waves": items / grid,
-            "query_tiles": [len(tiles(kv)) for kv in range(n_views)],
-            "rows_per_stored": computed / S, "walk": walk}
+            "items": items, "grid": grid, "waves": items / grid, "query_tiles": query_tiles,
+            "rows_per_stored": rows_per_stored, "walk": walk}
+
+
+def hopper_dq_plan(BH, S, dh, n_views, n_kpts, sms=132):
+    """Launch plan and walk of the Hopper dq kernel (`cross_attn_bwd_dq_bf16`)
+    on (BH, S, dh), as its C entry point makes them: {threads, tile_rows (query
+    rows of a work item), key_rows (a streamed tile's), stages, swizzle_bytes,
+    shared_bytes, items, grid (persistent: min(items, sms)), waves (items a
+    block), key_tiles (of each view's items, by view), rows_per_stored (query
+    rows computed per query row stored), walk}. `walk` (`_bwd_walk`, dk/dv's
+    with the roles swapped) lists one slice's work items: each owns query rows
+    and streams the other views' keys."""
+    walk, key_tiles, rows_per_stored = _bwd_walk(S, dh, n_views, n_kpts)
+    items = BH * len(walk)
+    tile = HOPPER_KEYS * 2 * dh
+    # two Q/dO buffers of four tiles, the K and V stages, 12 mbarriers, 1024 B
+    # of alignment
+    shared = 1024 + (8 + 2 * HOPPER_DQ_STAGES) * tile + 8 * (2 * HOPPER_DQ_STAGES + 4)
+    grid = min(items, sms)
+    return {"threads": HOPPER_THREADS, "tile_rows": HOPPER_ROWS, "key_rows": HOPPER_KEYS,
+            "stages": HOPPER_DQ_STAGES, "swizzle_bytes": 2 * dh, "shared_bytes": shared,
+            "items": items, "grid": grid, "waves": items / grid, "key_tiles": key_tiles,
+            "rows_per_stored": rows_per_stored, "walk": walk}
 
 
 def hopper_fwd_walk(name, S, n_views=1, n_kpts=None):

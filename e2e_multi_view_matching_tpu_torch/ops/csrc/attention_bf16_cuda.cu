@@ -55,10 +55,12 @@
 // drifted up to ~1.5e-6 of sum p |v| / l (4e-6 absolute at |v| ~ 2 on an output
 // that cancels to ~2e-5: 3.5 bf16 ulps there); 12 accumulations a 64-key tile from
 // 0 leave ~7e-7 of it (~2^-20), inside the gate's 2^-18
-// (ops/attention_cuda.py::BF16_SUM_TOL). dq sums each tile's products into a
-// fresh accumulator the same way; dk/dv keeps running sums, which its gate,
+// (ops/attention_cuda.py::BF16_SUM_TOL). The backward kernels keep running
+// sums instead (dQ; dK and dV): one float32 accumulator a gradient over all
+// the streamed tiles, 4 k-steps of 16 a tile, in the walk's order; their gate,
 // widened by the flips of the rounded p and ds, held with the same worst
-// reading at the ragged shapes as fresh sums did (PERF.md, section 6).
+// reading at the ragged shapes as fresh sums a tile did for dk/dv (PERF.md,
+// section 6).
 //
 // attn_fwd_bf16, cross_attn_fwd_bf16 and cross_attn_fwd_lse_bf16 (the Hopper
 // design, `hopper_fwd`; the LSE kernel stores m ln 2 + log(l + 1e-9) in its
@@ -86,35 +88,28 @@
 // reach ~47% of the 4-product floor; the products alone ~60% (m64n64 tiles, dh =
 // 64).
 //
-// cross_attn_bwd_dkv_bf16 (the Hopper design of the backward,
-// `cross_attn_bwd_dkv_bf16_kernel`): the same block shape and persistent grid;
-// a work item is 128 key rows inside one view, its K and V loaded once (TMA,
-// then into registers); the producer streams the other views' Q, dO, LSE and
-// dvec in tiles of 64 query rows; S^T = K Q^T and dP^T = V dO^T come out with
-// the keys as rows, so P^T and dS^T are already the register A operand of dV
-// += bf16(P^T) dO and dK += bf16(dS^T) Q (see the kernel). On the H100 its
-// m64n64k16 products run at ~40% of peak and p and ds add ~20%.
-//
-// cross_attn_bwd_dq_bf16 (`bwd_dq_tile`): FlashAttention-2 style on
-// mma.sync.m16n8k16 (bf16 in, f32 accumulate). 4 warps own 64 query rows, 16
-// each; a warp reads its A fragments from shared memory with ldmatrix once per
-// streamed tile (DH/16 k-steps). K and V go through shared memory in tiles of 64
-// rows with cp.async, double-buffered, rows padded by 8 bf16 so that ldmatrix
-// reads conflict-free; the streamed rows are the other views' as one virtual
-// range of (V-1) K rows with the own view cut out. Per tile it forms S = Q K^T and
-// dP = dO V^T (K and V read as B operands), p = exp2(S scale log2 e - lse log2 e)
-// (no running maximum: the LSE holds it), dS = p (dP - dvec), and dQ += bf16(dS)
-// K (K read again, with ldmatrix.trans). It holds two score tiles (2 x 32), the
-// output and the tile's accumulator (DH/2 each), built for 2 blocks per SM (<= 255
-// registers), no spills; shared memory 54 KB at DH = 64. Each block owns its
-// outputs: no atomics, the same bits on every run.
+// cross_attn_bwd_dkv_bf16 and cross_attn_bwd_dq_bf16 (the Hopper design of
+// the backward, `cross_attn_bwd_dkv_bf16_kernel`, `cross_attn_bwd_dq_bf16_kernel`):
+// the same block shape and persistent grid, and one walk (`BwdWalk`): a work
+// item is 128 rows inside one view, loaded once by TMA, against the other
+// views' rows, streamed in tiles of 64 as the two ranges before and after the
+// own view. dk/dv owns key rows (K and V, moved into registers as the A
+// operands of its scores) and streams Q, dO, LSE and dvec; S^T = K Q^T and
+// dP^T = V dO^T come out with the keys as rows, so P^T and dS^T are already
+// the register A operand of dV += bf16(P^T) dO and dK += bf16(dS^T) Q. On the
+// H100 its m64n64k16 products run at ~53% of peak and p and ds add ~35%. dq
+// owns query rows (Q and dO, which stay in shared memory as the A operands of
+// its scores, and its rows' LSE and dvec, loaded once an item) and streams K
+// and V: S = Q K^T and dP = dO V^T, p and ds in float32 with the keys past a
+// tile's range set to weigh 0, and dQ += bf16(dS) K with the packed dS as the
+// register A operand and K read MN-major from the tile S came from: 3
+// products a pair, one wait a tile (see the kernels).
 //
 // The tensor maps are encoded on the host at each call (cuTensorMapEncodeTiled,
 // reached through cudaGetDriverEntryPoint, so the library links no libcuda) and
 // passed as __grid_constant__ parameters; a base address that is not 16-byte
 // aligned cannot be mapped and returns -2.
 
-#include <climits>
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -125,273 +120,21 @@ namespace {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int NW = 4;           // mma.sync kernels: warps per block
-constexpr int NT = 32 * NW;     // mma.sync kernels: threads per block
-constexpr int BQ = 16 * NW;     // mma.sync kernels: query rows per block (16 a warp)
 constexpr int BK = 64;          // keys per tile (every kernel)
-constexpr int BWD_BLOCKS = 2;   // dq: blocks per SM the registers are sized for
 constexpr float kNegInf = -1e9f;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
 enum Mode { kFull = 0, kSelf = 1, kCross = 2 };
 
-static_assert(BQ == BK, "Q and the K/V tiles share the copy routine");
-
-// dq's layout, in bf16 elements (every row DH + 8 long: 16 bytes of padding, so
-// that the 8 rows an ldmatrix reads fall in 8 different groups of 4 banks): the
-// owned Q and dO (BQ rows each), then the streamed K and V, two tiles each.
-template <int DH>
-struct BwdSmem {
-  static constexpr int LD = DH + 8;
-  static constexpr int TILE = BK * LD;
-  static constexpr int b_off = BQ * LD;
-  static constexpr int x_off = 2 * BQ * LD;
-  static constexpr int y_off = x_off + 2 * TILE;
-  static constexpr int end = y_off + 2 * TILE;
-  static constexpr size_t bytes = (size_t)end * sizeof(bf16);
-};
-
-// 16-byte global -> shared copy, zero-filled (nothing read) when !valid.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
-               "r"(valid ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-// Tile row i <- row x0 + i of the virtual range [0, n), whose row x is row
-// x + gap_len of src from x >= gap on; zeros past n. Each thread copies one
-// 16-byte chunk c of every RPP-th row.
-template <int DH>
-__device__ __forceinline__ void copy_rows(bf16* dst, const bf16* __restrict__ src, int x0,
-                                          int n, int gap, int gap_len) {
-  constexpr int C = DH / 8, RPP = NT / C, LD = BwdSmem<DH>::LD;
-  static_assert(NT % C == 0 && BK % RPP == 0, "whole rows per pass");
-  const int c = threadIdx.x % C, i0 = threadIdx.x / C;
-#pragma unroll
-  for (int j = 0; j < BK / RPP; ++j) {
-    const int i = i0 + j * RPP;
-    const int x = x0 + i;
-    const bool valid = x < n;
-    const int row = valid ? x + (x >= gap ? gap_len : 0) : 0;
-    cp_async16(dst + i * LD + 8 * c, src + (size_t)row * DH + 8 * c, valid);
-  }
-}
-
-// Four 8x8 bf16 matrices from shared memory; lane i gives the address of row
-// i % 8 of matrix i / 8, and receives row lane / 4, columns 2 (lane % 4) + {0, 1}
-// of each (with .trans: column lane / 4, rows 2 (lane % 4) + {0, 1}).
+// Four 8x8 bf16 matrices from shared memory at address a; lane i gives the
+// address of row i % 8 of matrix i / 8, and receives row lane / 4, columns
+// 2 (lane % 4) + {0, 1} of each: a warp's 16 x 16 A fragment of a wgmma (or
+// mma) product.
 __device__ __forceinline__ void ldsm_x4_at(uint32_t (&r)[4], uint32_t a) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(a));
-}
-
-// ldsm_x4_at from a generic pointer into shared memory.
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
-  ldsm_x4_at(r, static_cast<uint32_t>(__cvta_generic_to_shared(p)));
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const bf16* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a));
-}
-
-// c (16x8 f32) += a (16x16 bf16, row-major fragment) * b (16x8 bf16, column fragment).
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t as_u32(__nv_bfloat162 v) {
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// (x, y) rounded to bfloat16, packed as one A-fragment register (x low).
-__device__ __forceinline__ uint32_t pack_bf16(float x, float y) {
-  return as_u32(__floats2bfloat162_rn(x, y));
-}
-
-// acc += bf16(x) B over one streamed tile: x is a warp's 16 x BK score
-// accumulators (8 blocks of 8 columns, rounded to bfloat16: the A operand of
-// k-step j is blocks 2j and 2j + 1), B the tile's BK rows read with
-// ldmatrix.trans. The tile's sum starts from 0 and is added to acc in float32.
-template <int DH>
-__device__ __forceinline__ void add_tile_product(float (&acc)[DH / 8][4],
-                                                 const float (&x)[8][4], const bf16* bt,
-                                                 int lane) {
-  constexpr int ND = DH / 8, LD = DH + 8;
-  float to[ND][4];
-#pragma unroll
-  for (int d = 0; d < ND; ++d)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) to[d][e] = 0.f;
-#pragma unroll
-  for (int j = 0; j < BK / 16; ++j) {
-    const uint32_t a[4] = {pack_bf16(x[2 * j][0], x[2 * j][1]),
-                           pack_bf16(x[2 * j][2], x[2 * j][3]),
-                           pack_bf16(x[2 * j + 1][0], x[2 * j + 1][1]),
-                           pack_bf16(x[2 * j + 1][2], x[2 * j + 1][3])};
-#pragma unroll
-    for (int d = 0; d < ND; d += 2) {
-      uint32_t b[4];
-      ldsm_x4_trans(b, bt + (16 * j + (lane & 7) + 8 * ((lane >> 3) & 1)) * LD + 8 * d +
-                           8 * (lane >> 4));
-      mma_bf16(to[d], a, b[0], b[1]);
-      mma_bf16(to[d + 1], a, b[2], b[3]);
-    }
-  }
-#pragma unroll
-  for (int d = 0; d < ND; ++d)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[d][e] += to[d][e];
-}
-
-// One dq block: query rows row0 .. row0 + n_live - 1 of one slice (q, dout
-// offset to row0; k, v to the slice; lse, dvec to the row) against the keys of
-// the virtual range [0, nkeys) (see copy_rows):
-//   dq_i = scale sum_j bf16(p_ij (dp_ij - dvec_i)) k_j,  p_ij = exp(s_ij - lse_i)
-template <int DH>
-__device__ __forceinline__ void bwd_dq_tile(const bf16* __restrict__ q,
-                                            const bf16* __restrict__ k,
-                                            const bf16* __restrict__ v,
-                                            const bf16* __restrict__ dout,
-                                            const float* __restrict__ lse,
-                                            const float* __restrict__ dvec,
-                                            bf16* __restrict__ dq, int n_live, int nkeys,
-                                            int gap, int gap_len, float scale) {
-  using L = BwdSmem<DH>;
-  constexpr int LD = L::LD;
-  constexpr int KS = DH / 16;
-  constexpr int ND = DH / 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* qs = reinterpret_cast<bf16*>(smem_raw);
-  bf16* dos = qs + L::b_off;
-  bf16* ks = qs + L::x_off;
-  bf16* vs = qs + L::y_off;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, tq = lane & 3;
-  const bool live = warp * 16 < n_live;
-
-  copy_rows<DH>(qs, q, 0, n_live, INT_MAX, 0);
-  copy_rows<DH>(dos, dout, 0, n_live, INT_MAX, 0);
-  copy_rows<DH>(ks, k, 0, nkeys, gap, gap_len);
-  copy_rows<DH>(vs, v, 0, nkeys, gap, gap_len);
-  cp_async_commit();
-
-  const int r = warp * 16 + g;  // this thread's rows r and r + 8
-  const float l2a = r < n_live ? lse[r] * kLog2e : 0.f;
-  const float l2b = r + 8 < n_live ? lse[r + 8] * kLog2e : 0.f;
-  const float dva = r < n_live ? dvec[r] : 0.f;
-  const float dvb = r + 8 < n_live ? dvec[r + 8] : 0.f;
-  float acc[ND][4];
-#pragma unroll
-  for (int d = 0; d < ND; ++d)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[d][e] = 0.f;
-  const float scale2 = scale * kLog2e;
-  const int n_tiles = (nkeys + BK - 1) / BK;
-
-  for (int t = 0; t < n_tiles; ++t) {
-    cp_async_wait_all();  // tile t (and Q, dO) have landed
-    __syncthreads();      // ... for every thread; and every warp is done with tile t-1
-    if (t + 1 < n_tiles) {
-      const int nb = (t + 1) & 1;
-      copy_rows<DH>(ks + nb * L::TILE, k, (t + 1) * BK, nkeys, gap, gap_len);
-      copy_rows<DH>(vs + nb * L::TILE, v, (t + 1) * BK, nkeys, gap, gap_len);
-      cp_async_commit();
-    }
-    if (!live) continue;
-    const bf16* kt = ks + (t & 1) * L::TILE;
-    const bf16* vt = vs + (t & 1) * L::TILE;
-
-    // S = Q K^T and dP = dO V^T: 8 blocks of 8 keys each
-    float s[8][4], dp[8][4];
-#pragma unroll
-    for (int nb = 0; nb < 8; ++nb)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[nb][e] = dp[nb][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < KS; ++kk) {
-      uint32_t qf[4], df[4];
-      ldsm_x4(qf, qs + (warp * 16 + (lane & 15)) * LD + 16 * kk + 8 * (lane >> 4));
-      ldsm_x4(df, dos + (warp * 16 + (lane & 15)) * LD + 16 * kk + 8 * (lane >> 4));
-#pragma unroll
-      for (int nb = 0; nb < 8; nb += 2) {
-        const int off = (8 * nb + (lane & 7) + 8 * (lane >> 4)) * LD + 16 * kk +
-                        8 * ((lane >> 3) & 1);
-        uint32_t b[4];
-        ldsm_x4(b, kt + off);
-        mma_bf16(s[nb], qf, b[0], b[1]);
-        mma_bf16(s[nb + 1], qf, b[2], b[3]);
-        ldsm_x4(b, vt + off);
-        mma_bf16(dp[nb], df, b[0], b[1]);
-        mma_bf16(dp[nb + 1], df, b[2], b[3]);
-      }
-    }
-
-    // dS = p (dP - dvec) in float32, into s
-    const int x0 = t * BK;
-#pragma unroll
-    for (int nb = 0; nb < 8; ++nb) {
-#pragma unroll
-      for (int c = 0; c < 2; ++c) {
-        const bool past = x0 + BK > nkeys && x0 + 8 * nb + 2 * tq + c >= nkeys;
-        const float pa = past ? 0.f : exp2f(fmaf(s[nb][c], scale2, -l2a));
-        const float pb = past ? 0.f : exp2f(fmaf(s[nb][2 + c], scale2, -l2b));
-        s[nb][c] = pa * (dp[nb][c] - dva);
-        s[nb][2 + c] = pb * (dp[nb][2 + c] - dvb);
-      }
-    }
-
-    add_tile_product<DH>(acc, s, kt, lane);  // the tile's bf16(dS) K
-  }
-
-  if (!live) return;
-#pragma unroll
-  for (int d = 0; d < ND; ++d) {
-    const int col = 8 * d + 2 * tq;
-    if (r < n_live)
-      *reinterpret_cast<__nv_bfloat162*>(dq + (size_t)r * DH + col) =
-          __floats2bfloat162_rn(acc[d][0] * scale, acc[d][1] * scale);
-    if (r + 8 < n_live)
-      *reinterpret_cast<__nv_bfloat162*>(dq + (size_t)(r + 8) * DH + col) =
-          __floats2bfloat162_rn(acc[d][2] * scale, acc[d][3] * scale);
-  }
-}
-
-// grid (n_views * tiles, BH): the block owns query rows of view qv and streams
-// the other views' keys.
-template <int DH>
-__global__ void __launch_bounds__(NT, BWD_BLOCKS)
-cross_attn_bwd_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                              const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                              const float* __restrict__ lse, const float* __restrict__ dvec,
-                              bf16* __restrict__ dq, int S, int n_views, int n_kpts,
-                              int tiles, float scale) {
-  const size_t base = (size_t)blockIdx.y * S * DH;
-  const int qv = blockIdx.x / tiles;
-  const int row0 = qv * n_kpts + (blockIdx.x % tiles) * BQ;
-  const size_t r = (size_t)blockIdx.y * S + row0;
-  bwd_dq_tile<DH>(q + base + (size_t)row0 * DH, k + base, v + base,
-                  dout + base + (size_t)row0 * DH, lse + r, dvec + r,
-                  dq + base + (size_t)row0 * DH, min(BQ, (qv + 1) * n_kpts - row0),
-                  (n_views - 1) * n_kpts, qv * n_kpts, n_kpts, scale);
 }
 
 // ---- attn_fwd_bf16 and cross_attn_fwd_bf16: TMA, wgmma, warp-specialised ----
@@ -971,7 +714,8 @@ cross_attn_fwd_lse_bf16_kernel(const __grid_constant__ CUtensorMap qm,
                               scale, n_items);
 }
 
-// ---- cross_attn_bwd_dkv_bf16: TMA, wgmma, warp-specialised ----
+// ---- cross_attn_bwd_dkv_bf16 and cross_attn_bwd_dq_bf16: TMA, wgmma,
+// warp-specialised ----
 
 constexpr int HB_STAGES = 4;  // Q and dO tiles of 64 query rows in flight
 // setmaxnreg of the dk/dv kernel: the block's 168 x 384 registers at launch
@@ -1006,42 +750,43 @@ struct BSmem {
   static constexpr size_t bytes = 1024 + bar_off + 8 * n_bars;
 };
 
-// cross_attn_bwd_dkv_bf16's walk: work items of 128 key rows inside one view kv
-// (the last of a view ragged; item i: slice i / (n_views row_tiles)), each
-// against the other views' query rows, streamed as the two contiguous ranges
-// before and after the own view, [0, kv K) and [(kv + 1) K, S), in n_tiles(kv)
-// tiles of 64 (a tile that straddles into the own view or past S weighs 0
-// there: 25-26 tiles at V = 5, K = 400, against 28 one view at a time).
-struct DkvWalk {
+// The backward kernels' walk: work items of 128 owned rows inside one view w
+// (key rows for dk/dv, query rows for dq; the last of a view ragged; item i:
+// slice i / (n_views row_tiles)), each against the other views' rows (query
+// rows for dk/dv, keys for dq), streamed as the two contiguous ranges before
+// and after the own view, [0, w K) and [(w + 1) K, S), in n_tiles(w) tiles of
+// 64 (a tile that straddles into the own view or past S weighs 0 there: 25-26
+// tiles at V = 5, K = 400, against 28 one view at a time).
+struct BwdWalk {
   int S, n_views, n_kpts, row_tiles;
-  __device__ void item(int i, int& bh, int& kv, int& row0, int& n_live) const {
+  __device__ void item(int i, int& bh, int& w, int& row0, int& n_live) const {
     const int per = n_views * row_tiles;
     bh = i / per;
     const int rest = i - bh * per;
-    kv = rest / row_tiles;
-    const int r0 = (rest - kv * row_tiles) * HW_ROWS;  // first row within the view
-    row0 = kv * n_kpts + r0;
+    w = rest / row_tiles;
+    const int r0 = (rest - w * row_tiles) * HW_ROWS;  // first row within the view
+    row0 = w * n_kpts + r0;
     n_live = min(HW_ROWS, n_kpts - r0);
   }
-  __device__ int n_tiles(int kv) const {
-    return cdiv(kv * n_kpts, BK) + cdiv(S - (kv + 1) * n_kpts, BK);
+  __device__ int n_tiles(int w) const {
+    return cdiv(w * n_kpts, BK) + cdiv(S - (w + 1) * n_kpts, BK);
   }
-  // tile t of view kv's walk: query rows x0 .. x0 + 63, of which the first
+  // tile t of view w's walk: streamed rows x0 .. x0 + 63, of which the first
   // `valid` weigh
-  __device__ void tile(int kv, int t, int& x0, int& valid) const {
-    const int na = cdiv(kv * n_kpts, BK);
+  __device__ void tile(int w, int t, int& x0, int& valid) const {
+    const int na = cdiv(w * n_kpts, BK);
     if (t < na) {
       x0 = t * BK;
-      valid = min(BK, kv * n_kpts - x0);
+      valid = min(BK, w * n_kpts - x0);
     } else {
-      x0 = (kv + 1) * n_kpts + (t - na) * BK;
+      x0 = (w + 1) * n_kpts + (t - na) * BK;
       valid = min(BK, S - x0);
     }
   }
 };
 
 // dk and dv of the cross-view attention on a persistent grid of min(n_items,
-// SMs) blocks: the BH n_views ceil(K / 128) work items of DkvWalk from
+// SMs) blocks: the BH n_views ceil(K / 128) work items of BwdWalk from
 // blockIdx.x on, gridDim.x apart. qm, km, vm, dom map q, k, v, dO; lse, dvec,
 // dk, dv are (BH, S). A producer warp loads an item's K and V once (TMA, into
 // one of two buffers) and streams the query tiles through HB_STAGES stages:
@@ -1094,7 +839,7 @@ cross_attn_bwd_dkv_bf16_kernel(const __grid_constant__ CUtensorMap qm,
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
-  const DkvWalk walk{S, n_views, n_kpts, cdiv(n_kpts, HW_ROWS)};
+  const BwdWalk walk{S, n_views, n_kpts, cdiv(n_kpts, HW_ROWS)};
   const int wg = threadIdx.x / 128;
 
   if (wg == 0) {  // the producer warp: thread 0 issues the TMA loads
@@ -1313,6 +1058,287 @@ cross_attn_bwd_dkv_bf16_kernel(const __grid_constant__ CUtensorMap qm,
   if (c == 0) turn_wait(1);  // the turn consumer 1 passed after its last products
 }
 
+constexpr int HQ_STAGES = 4;  // dq: K and V tiles of 64 keys in flight
+
+// The dq kernel's shared memory in bytes from a 1024-aligned base: two Q/dO
+// buffers of four 64-row tiles (Q's halves, then dO's: one half a consumer
+// warpgroup), HQ_STAGES K tiles, HQ_STAGES V tiles (each swizzled as HSmem's),
+// then the mbarriers.
+template <int DH>
+struct DqSmem {
+  static constexpr int TILE = HSmem<DH>::TILE;
+  static constexpr int qo_off = 0;
+  static constexpr int k_off = qo_off + 8 * TILE;
+  static constexpr int v_off = k_off + HQ_STAGES * TILE;
+  static constexpr int bar_off = v_off + HQ_STAGES * TILE;
+  static constexpr int n_bars = 2 * HQ_STAGES + 4;  // full, empty a stage and a Q/dO buffer
+  static constexpr size_t bytes = 1024 + bar_off + 8 * n_bars;
+};
+
+// dq of the cross-view attention on a persistent grid of min(n_items, SMs)
+// blocks: the BH n_views ceil(K / 128) work items of BwdWalk (128 query rows
+// of one view qv) from blockIdx.x on, gridDim.x apart. qm, km, vm, dom map q,
+// k, v, dO; lse and dvec are (BH, S) float32, dq (BH, S, DH). The producer's
+// thread 0 loads an item's Q and dO once (TMA, into one of two buffers) and
+// streams the other views' K and V in tiles of 64 keys through HQ_STAGES
+// stages; it needs no other stores, so it takes the forward's 40 registers.
+// Consumer warpgroup c owns the item's rows 64 c .. 64 c + 63, its halves of
+// the Q and dO tiles, and loads its rows' LSE log2 e and dvec once an item
+// with plain loads (a (BH, S) float32 slice's stride breaks TMA's 16-byte rule
+// at ragged S); a row past the view's end gets LSE +inf and weighs 0. Per
+// tile: S = Q K^T and dP = dO V^T (wgmma m64n64k16, both operands K-major in
+// shared memory, as the forward's S), p = exp2(s scale log2 e - lse log2 e)
+// and ds = p (dp - dvec) in float32 registers, then dQ += bf16(dS) K (wgmma
+// m64nDHk16, the rounded dS the register A operand, K read MN-major from the
+// tile S came from). A key past the tile's `valid` (the own view's, or a zero
+// row past S, which would give s = 0 and p = exp(-lse) != 0) gets s = -inf,
+// so p = 0, in a branch that only the tiles at a range's end take and that
+// holds no product. dQ is a running sum. In its turn a warpgroup issues tile
+// t's S and dP and then tile t - 1's sum (the first tile has no sum before
+// it; the last sum takes a turn of its own), waits for all three, frees tile
+// t - 1's stage and takes p and ds while the other warpgroup's products run:
+// one wait a tile. A warpgroup whose rows all lie past the view's end takes
+// its turns and arrivals in a loop without products. Q and dO as register A
+// operands (as dk/dv's K and V) miscompiled at DH = 64 in an earlier form of
+// this loop, whose sum was still running across the loop's back edge: ptxas
+// gave the packed dS the registers of Q's and dO's last two k-steps, which
+// the next tile's products then read (empty-asm fences on them changed
+// nothing). In this loop the register form computes the right dq and is
+// ~6% faster (tools/torch_attn_bf16_variants.py --kernel dq, `regs_a`), but
+// only by ptxas's choice of registers, so Q and dO stay in shared memory.
+template <int DH>
+__global__ void __launch_bounds__(HW_THREADS, 1)
+cross_attn_bwd_dq_bf16_kernel(const __grid_constant__ CUtensorMap qm,
+                              const __grid_constant__ CUtensorMap km,
+                              const __grid_constant__ CUtensorMap vm,
+                              const __grid_constant__ CUtensorMap dom,
+                              const float* __restrict__ lse, const float* __restrict__ dvec,
+                              bf16* __restrict__ dq, int S, int n_views, int n_kpts,
+                              float scale, int n_items) {
+  using L = DqSmem<DH>;
+  using H = HSmem<DH>;
+  constexpr int R = DH / 2;  // accumulator registers of a 64 x DH tile
+  extern __shared__ __align__(16) unsigned char hq_smem[];
+  const uint32_t base = (smem_u32(hq_smem) + 1023u) & ~1023u;
+  // mbarriers: full and empty of each stage, full and empty of each Q/dO buffer
+  const uint32_t full0 = base + L::bar_off, empty0 = full0 + 8 * HQ_STAGES;
+  const uint32_t qfull0 = empty0 + 8 * HQ_STAGES, qempty0 = qfull0 + 16;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < HQ_STAGES; ++s) {
+      mbar_init(full0 + 8 * s, 1);   // the producer's arrival and the tile's bytes
+      mbar_init(empty0 + 8 * s, 8);  // every consumer warp, done with the stage
+    }
+    for (int b = 0; b < 2; ++b) {
+      mbar_init(qfull0 + 8 * b, 1);
+      mbar_init(qempty0 + 8 * b, 8);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  const BwdWalk walk{S, n_views, n_kpts, cdiv(n_kpts, HW_ROWS)};
+  const int wg = threadIdx.x / 128;
+
+  if (wg == 0) {  // the producer: one thread issues every load
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
+    if (threadIdx.x != 0) return;
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int i = blockIdx.x, u = 0; i < n_items; i += gridDim.x, ++u) {
+      int bh, qv, row0, n_live;
+      walk.item(i, bh, qv, row0, n_live);
+      const int b = u & 1;  // Q/dO buffer; its (u / 2)-th use waits for the one before
+      mbar_wait(qempty0 + 8 * b, ((u >> 1) & 1) ^ 1);
+      mbar_expect_tx(qfull0 + 8 * b, 4 * L::TILE);
+      for (int h = 0; h < 2; ++h) {
+        tma_load(base + L::qo_off + (4 * b + h) * L::TILE, &qm, qfull0 + 8 * b, row0 + 64 * h,
+                 bh);
+        tma_load(base + L::qo_off + (4 * b + 2 + h) * L::TILE, &dom, qfull0 + 8 * b,
+                 row0 + 64 * h, bh);
+      }
+      const int n = walk.n_tiles(qv);
+      for (int t = 0; t < n; ++t) {
+        int x0, valid;
+        walk.tile(qv, t, x0, valid);
+        mbar_wait(empty0 + 8 * stage, phase ^ 1);
+        mbar_expect_tx(full0 + 8 * stage, 2 * L::TILE);
+        tma_load(base + L::k_off + stage * L::TILE, &km, full0 + 8 * stage, x0, bh);
+        tma_load(base + L::v_off + stage * L::TILE, &vm, full0 + 8 * stage, x0, bh);
+        if (++stage == HQ_STAGES) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+    }
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
+  const int c = wg - 1;  // consumer c owns rows 64 c .. 64 c + 63 of a work item
+  const int tid = threadIdx.x - 128 * wg;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, tq = lane & 3;  // rows g, g + 8 of the warp's 16; columns 2 tq + {0, 1}
+  const int r = 64 * c + 16 * warp + g;    // this thread's rows r and r + 8 of an item
+  const float scale2 = scale * kLog2e;     // scores in base 2
+  float s[32], dp[32], dqa[R];             // S, dP (then p, dS); dQ
+  uint32_t da[16];                         // bf16(dS): the sum's A operand
+#pragma unroll
+  for (int e = 0; e < 32; ++e) s[e] = dp[e] = 0.f;
+  int stage = 0, pstage = 0;  // the tile for the next S, dP; the last one
+  uint32_t phase = 0;
+  if (c == 1) turn_pass(1);  // consumer 0 takes the first turn
+
+  for (int i = blockIdx.x, u = 0; i < n_items; i += gridDim.x, ++u) {
+    int bh, qv, row0, n_live;
+    walk.item(i, bh, qv, row0, n_live);
+    const int b = u & 1;
+    const bool live = 64 * c < n_live;  // the same in the whole warpgroup
+    const uint32_t qs = base + L::qo_off + (4 * b + c) * L::TILE;  // Q's half; dO's 2 tiles on
+    const uint64_t qd = smem_desc(qs, H::layout, H::group);
+    const uint64_t od = smem_desc(qs + 2 * L::TILE, H::layout, H::group);
+    // rows r's and r + 8's LSE log2 e and dvec (a row past the view's end: +inf, 0)
+    const size_t rr = (size_t)bh * S + row0 + r;
+    const float l0 = r < n_live ? lse[rr] * kLog2e : INFINITY;
+    const float l1 = r + 8 < n_live ? lse[rr + 8] * kLog2e : INFINITY;
+    const float dv0 = r < n_live ? dvec[rr] : 0.f;
+    const float dv1 = r + 8 < n_live ? dvec[rr + 8] : 0.f;
+#pragma unroll
+    for (int e = 0; e < R; ++e) dqa[e] = 0.f;
+
+    // S = Q K^T and dP = dO V^T of the tile in `stage`: DH / 16 k-steps of 32
+    // bytes along the rows, the two products' steps interleaved
+    auto issue_sd = [&]() {
+      const uint64_t kd = smem_desc(base + L::k_off + stage * L::TILE, H::layout, H::group);
+      const uint64_t vd = smem_desc(base + L::v_off + stage * L::TILE, H::layout, H::group);
+#pragma unroll
+      for (int kk = 0; kk < DH / 16; ++kk) {
+        wgmma_ss(s, qd + 2 * kk, kd + 2 * kk, kk > 0);
+        wgmma_ss(dp, od + 2 * kk, vd + 2 * kk, kk > 0);
+      }
+    };
+    // dQ += bf16(dS) K of the tile in `in`: 16 keys a k-step (two 8-row
+    // groups of K, read MN-major)
+    auto issue_sum = [&](int in) {
+      const uint64_t kd = smem_desc(base + L::k_off + in * L::TILE, H::layout, H::group);
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        wgmma_rs(dqa, da[4 * j], da[4 * j + 1], da[4 * j + 2], da[4 * j + 3],
+                 kd + ((2 * H::group * j) >> 4), 1);
+    };
+    // p and ds = p (dp - dvec) into dp, in place (rows r: elements 0, 1 of
+    // each 8-key block; r + 8: 2, 3); keys from `valid` on weigh 0
+    auto p_ds = [&](int valid) {
+      if (valid < BK) {
+#pragma unroll
+        for (int nb = 0; nb < 8; ++nb)
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            if (8 * nb + 2 * tq + e >= valid) s[4 * nb + e] = s[4 * nb + 2 + e] = -INFINITY;
+      }
+#pragma unroll
+      for (int nb = 0; nb < 8; ++nb) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float p0 = ex2(fmaf(s[4 * nb + e], scale2, -l0));
+          const float p1 = ex2(fmaf(s[4 * nb + 2 + e], scale2, -l1));
+          dp[4 * nb + e] = p0 * (dp[4 * nb + e] - dv0);
+          dp[4 * nb + 2 + e] = p1 * (dp[4 * nb + 2 + e] - dv1);
+        }
+      }
+    };
+    // bf16(dS) in the A layout of the sum (k-step j: key blocks 2j and 2j + 1)
+    auto pack = [&]() {
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int h = 0; h < 4; ++h)
+          da[4 * j + h] = cvt_bf16x2(dp[8 * j + 2 * h], dp[8 * j + 2 * h + 1]);
+    };
+    auto next_stage = [&]() {
+      pstage = stage;
+      if (++stage == HQ_STAGES) {
+        stage = 0;
+        phase ^= 1;
+      }
+    };
+
+    const int n = walk.n_tiles(qv);
+    mbar_wait(qfull0 + 8 * b, (u >> 1) & 1);
+    // As dk/dv, the skip of a warpgroup with no live row chooses between two
+    // loops: no wgmma under a branch ptxas cannot prove warpgroup-uniform.
+    if (live) {
+      int x0, valid;
+      walk.tile(qv, 0, x0, valid);
+      mbar_wait(full0 + 8 * stage, phase);
+      turn_wait(1 + c);
+      wgmma_fence();
+      issue_sd();
+      wgmma_commit();
+      turn_pass(2 - c);
+      wgmma_wait<0>();
+      fence_regs(s);
+      fence_regs(dp);
+      p_ds(valid);
+      pack();
+      next_stage();
+      for (int t = 1; t < n; ++t) {
+        walk.tile(qv, t, x0, valid);
+        mbar_wait(full0 + 8 * stage, phase);
+        turn_wait(1 + c);
+        wgmma_fence();
+        issue_sd();
+        wgmma_commit();
+        issue_sum(pstage);
+        wgmma_commit();
+        turn_pass(2 - c);
+        wgmma_wait<0>();  // S, dP of tile t; the sum of tile t - 1
+        fence_regs(s);
+        fence_regs(dp);
+        fence_regs(dqa);
+        if (lane == 0) mbar_arrive(empty0 + 8 * pstage);
+        p_ds(valid);
+        pack();
+        next_stage();
+      }
+      turn_wait(1 + c);
+      wgmma_fence();
+      issue_sum(pstage);
+      wgmma_commit();
+      turn_pass(2 - c);
+      wgmma_wait<0>();
+      fence_regs(dqa);
+    } else {  // the turns and the stages' arrivals only
+      for (int t = 0; t < n; ++t) {
+        mbar_wait(full0 + 8 * stage, phase);
+        turn_wait(1 + c);
+        turn_pass(2 - c);
+        if (t > 0 && lane == 0) mbar_arrive(empty0 + 8 * pstage);
+        next_stage();
+      }
+      turn_wait(1 + c);  // the turn of the last tile's sum
+      turn_pass(2 - c);
+    }
+    if (lane == 0) {
+      mbar_arrive(empty0 + 8 * pstage);
+      mbar_arrive(qempty0 + 8 * b);  // the item's last S and dP are done
+    }
+
+    if (live) {
+      bf16* dqb = dq + ((size_t)bh * S + row0) * DH;
+#pragma unroll
+      for (int d = 0; d < DH / 8; ++d) {
+        const int col = 8 * d + 2 * tq;
+        if (r < n_live)
+          *reinterpret_cast<__nv_bfloat162*>(dqb + (size_t)r * DH + col) =
+              __floats2bfloat162_rn(dqa[4 * d] * scale, dqa[4 * d + 1] * scale);
+        if (r + 8 < n_live)
+          *reinterpret_cast<__nv_bfloat162*>(dqb + (size_t)(r + 8) * DH + col) =
+              __floats2bfloat162_rn(dqa[4 * d + 2] * scale, dqa[4 * d + 3] * scale);
+      }
+    }
+  }
+  if (c == 0) turn_wait(1);  // the turn consumer 1 passed after its last products
+}
+
 // Above 48 KB a block's shared memory is dynamic only; the carveout asks for the
 // SM's whole 228 KB, so that as many blocks fit as the registers allow.
 template <typename F>
@@ -1422,25 +1448,25 @@ int launch_cross(const void* q, const void* k, const void* v, bf16* o, float* ls
   return 0;
 }
 
-// dk == nullptr: the dq kernel (into dq); else the dk/dv kernel (into dk, dv,
-// the Hopper kernel: -2 where a TMA map cannot be made).
+// dk == nullptr: the dq kernel (into dq); else the dk/dv kernel (into dk, dv).
+// Both persistent, on the work items of BwdWalk; -2 where a TMA map cannot be
+// made.
 template <int DH>
 int launch_bwd(const bf16* q, const bf16* k, const bf16* v, const bf16* dout,
                const float* lse, const float* dvec, bf16* dq, bf16* dk, bf16* dv, int BH,
                int S, int n_views, int n_kpts, float scale, cudaStream_t st) {
-  if (dk == nullptr) {
-    const int tiles = (n_kpts + BQ - 1) / BQ;
-    constexpr size_t bytes = BwdSmem<DH>::bytes;
-    prepare_smem(cross_attn_bwd_dq_bf16_kernel<DH>, bytes);
-    cross_attn_bwd_dq_bf16_kernel<DH><<<dim3(n_views * tiles, BH), NT, bytes, st>>>(
-        q, k, v, dout, lse, dvec, dq, S, n_views, n_kpts, tiles, scale);
-    return 0;
-  }
   CUtensorMap maps[4];
   if (!make_maps(maps, q, k, v, BH, S, DH) || !make_map(&maps[3], dout, BH, S, DH)) return -2;
+  const int items = BH * n_views * cdiv(n_kpts, HW_ROWS);
+  if (dk == nullptr) {
+    constexpr size_t bytes = DqSmem<DH>::bytes;
+    prepare_smem(cross_attn_bwd_dq_bf16_kernel<DH>, bytes);
+    cross_attn_bwd_dq_bf16_kernel<DH><<<min(items, sm_count()), HW_THREADS, bytes, st>>>(
+        maps[0], maps[1], maps[2], maps[3], lse, dvec, dq, S, n_views, n_kpts, scale, items);
+    return 0;
+  }
   constexpr size_t bytes = BSmem<DH>::bytes;
   prepare_smem(cross_attn_bwd_dkv_bf16_kernel<DH>, bytes);
-  const int items = BH * n_views * cdiv(n_kpts, HW_ROWS);
   cross_attn_bwd_dkv_bf16_kernel<DH><<<min(items, sm_count()), HW_THREADS, bytes, st>>>(
       maps[0], maps[1], maps[2], maps[3], lse, dvec, dk, dv, S, n_views, n_kpts, scale, items);
   return 0;
@@ -1479,8 +1505,8 @@ int kernel_info_dh(int which, int* info) {
     case 3: return kernel_info(cross_attn_fwd_bf16_kernel<DH>, hw, HW_THREADS, HW_ROWS, 1, info);
     case 4: return kernel_info(cross_attn_fwd_lse_bf16_kernel<DH>, hw, HW_THREADS, HW_ROWS, 1, info);
     case 5:
-      return kernel_info(cross_attn_bwd_dq_bf16_kernel<DH>, BwdSmem<DH>::bytes, NT, BQ, 0,
-                         info);
+      return kernel_info(cross_attn_bwd_dq_bf16_kernel<DH>, DqSmem<DH>::bytes, HW_THREADS,
+                         HW_ROWS, 1, info);
     case 6:
       return kernel_info(cross_attn_bwd_dkv_bf16_kernel<DH>, BSmem<DH>::bytes, HW_THREADS,
                          HW_ROWS, 1, info);
@@ -1532,8 +1558,8 @@ int cross_bwd(const void* q, const void* k, const void* v, const void* dout,
 extern "C" {
 
 // Each returns 0 on success, -1 for an unsupported head width, mode or shape, -2
-// where a TMA map cannot be made (every kernel but cross_attn_bwd_dq_bf16),
-// otherwise the cudaGetLastError() code of the launch.
+// where a TMA map cannot be made, otherwise the cudaGetLastError() code of the
+// launch.
 int attn_fwd_bf16(const void* q, const void* k, const void* v, void* o, int BH, int S,
                   int dh, int n_kpts, int mode, float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);

@@ -8,10 +8,11 @@ tensors) at the same shapes, the cross-attention kernels of the training path
 (the forward with the LSE stash, dq and dk/dv) against their plain PyTorch
 versions, and the autograd function that joins them, in float32 and bfloat16.
 
-Every test is marked `cuda` and skips without a GPU, except `TestHopperPlan`
-and `TestHopperDkvPlan`, which hold the launch plans and the walks of the
-Hopper kernels (`attn_fwd_bf16`, `cross_attn_fwd_bf16`,
-`cross_attn_fwd_lse_bf16`; `cross_attn_bwd_dkv_bf16`) on the CPU. The file imports neither
+Every test is marked `cuda` and skips without a GPU, except `TestHopperPlan`,
+`TestHopperDkvPlan` and `TestHopperDqPlan`, which hold the launch plans and the
+walks of the Hopper kernels (`attn_fwd_bf16`, `cross_attn_fwd_bf16`,
+`cross_attn_fwd_lse_bf16`; `cross_attn_bwd_dkv_bf16`; `cross_attn_bwd_dq_bf16`)
+on the CPU. The file imports neither
 JAX nor the JAX package, so it also runs on a machine that has only PyTorch
 and the CUDA toolkit:
 
@@ -39,9 +40,9 @@ FWD_SHAPES = [(V, K, dh) for K in (1, 15, 16, 17, 63, 65, 200, 400)
 # the Hopper forward kernels' edges: 64-key tiles, 128-row work items
 HOPPER_EDGE_SHAPES = [(V, K, dh) for K in (127, 128, 129, 255, 1024)
                       for V in (2, 5) for dh in (16, 32, 64)]
-# the Hopper training kernels' edges (the LSE forward, dk/dv): 64-row tiles of
-# the streamed rows and of a consumer warpgroup's keys, 128-row work items, the
-# ranges before and after the own view (V = 3: both ranges non-empty)
+# the Hopper training kernels' edges (the LSE forward, dq, dk/dv): 64-row tiles
+# of the streamed rows and of a consumer warpgroup's owned rows, 128-row work
+# items, the ranges before and after the own view (V = 3: both ranges non-empty)
 TRAIN_EDGE_SHAPES = [(V, K, dh) for K in (1, 15, 16, 17, 63, 64, 65, 127, 128, 129, 400)
                      for V in (2, 3, 5) for dh in (16, 32, 64)]
 
@@ -241,8 +242,8 @@ def _bf16_bwd_inputs(cuda, V, K, dh):
 @pytest.mark.cuda
 class TestBf16TrainingKernels:
     """The bfloat16 tensor-core kernels of the training path (route: nvcc-built
-    CUDA C++, sm_90a; the LSE forward and dk/dv TMA and wgmma, dq mma.sync
-    bf16): `cross_attn_fwd_lse` on bfloat16 q, k, v
+    CUDA C++, sm_90a; all three TMA and wgmma, warp-specialised, persistent):
+    `cross_attn_fwd_lse` on bfloat16 q, k, v
     against `cross_attn_fwd_lse_plain` (the output within the forward's
     one-ulp gate, as the eval kernel's, which has another body; the float32
     LSE within 1e-5 absolute, relative above 1), `cross_attn_bwd_dq` and `cross_attn_bwd_dkv` on
@@ -294,9 +295,9 @@ class TestBf16TrainingKernels:
 
     @pytest.mark.parametrize("V,K,dh", TRAIN_EDGE_SHAPES)
     def test_hopper_training_kernels_at_tile_edges(self, cuda, V, K, dh):
-        """The LSE forward and dk/dv where their tiles and items end: the
-        output within the one-ulp gate, the LSE within 1e-5, dk and dv within
-        the backward's gate, the same bits on two runs."""
+        """The LSE forward, dq and dk/dv where their tiles and items end: the
+        output within the one-ulp gate, the LSE within 1e-5, dq, dk and dv
+        within the backward's gate, the same bits on two runs."""
         q, k, v = (x.bfloat16() for x in _fwd_inputs(cuda, V, K, dh))
         scale = 1.0 / dh ** 0.5
         o, lse = ac.cross_attn_fwd_lse(q, k, v, V, K, scale)
@@ -308,29 +309,33 @@ class TestBf16TrainingKernels:
         o2, lse2 = ac.cross_attn_fwd_lse(q, k, v, V, K, scale)
         assert torch.equal(o, o2) and torch.equal(lse, lse2)
         args = _bf16_bwd_inputs(cuda, V, K, dh)
+        dq = ac.cross_attn_bwd_dq(*args)
         dk, dv = ac.cross_attn_bwd_dkv(*args)
-        _, rk, rv = ac.cross_attn_bwd_plain(*args)
-        _, sk, sv = ac.cross_attn_bwd_bf16_slack(*args)
+        rq, rk, rv = ac.cross_attn_bwd_plain(*args)
+        sq, sk, sv = ac.cross_attn_bwd_bf16_slack(*args)
+        assert ac.bf16_ulp_error(dq, rq, *sq) <= 1.0
         assert ac.bf16_ulp_error(dk, rk, *sk) <= 1.0
         assert ac.bf16_ulp_error(dv, rv, *sv) <= 1.0
+        assert torch.equal(dq, ac.cross_attn_bwd_dq(*args))
         dk2, dv2 = ac.cross_attn_bwd_dkv(*args)
         assert torch.equal(dk, dk2) and torch.equal(dv, dv2)
 
     def test_hopper_training_kernels_same_bits_at_the_training_shape(self, cuda):
-        """Two runs of the LSE forward and of dk/dv at 32 x 2000 x 64 (V = 5, K =
-        400) give the same bits: a persistent block walks its work items in a
-        fixed order, no atomics."""
+        """Two runs of the LSE forward, of dq and of dk/dv at 32 x 2000 x 64 (V =
+        5, K = 400) give the same bits: a persistent block walks its work items
+        in a fixed order, no atomics."""
         args = _bf16_bwd_inputs(cuda, 5, 400, 64)
         q, k, v = args[:3]
         runs = [ac.cross_attn_fwd_lse(q, k, v, 5, 400, 0.125) for _ in range(2)]
         assert torch.equal(runs[0][0], runs[1][0]) and torch.equal(runs[0][1], runs[1][1])
+        assert torch.equal(ac.cross_attn_bwd_dq(*args), ac.cross_attn_bwd_dq(*args))
         a, b = (ac.cross_attn_bwd_dkv(*args) for _ in range(2))
         assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
 
     def test_misaligned_operand_raises(self, cuda):
         """A TMA map takes only a 16-byte aligned base: a q, k, v (or dO) at an
-        offset of 2 bytes raises before any launch of the LSE forward or dk/dv,
-        and nothing runs in its place."""
+        offset of 2 bytes raises before any launch of the LSE forward, dq or
+        dk/dv, and nothing runs in its place."""
         x = torch.zeros(2 * 48 * 16 + 1, device=cuda, dtype=torch.bfloat16)
         odd = x[1:].view(2, 48, 16)
         ok = torch.zeros(2, 48, 16, device=cuda, dtype=torch.bfloat16)
@@ -341,18 +346,20 @@ class TestBf16TrainingKernels:
                 ac.cross_attn_fwd_lse(*qkv, 3, 16, 0.25)
         for qkvd in ((odd, ok, ok, ok), (ok, odd, ok, ok), (ok, ok, odd, ok), (ok, ok, ok, odd)):
             with pytest.raises(ValueError):
+                ac.cross_attn_bwd_dq(*qkvd, r, r, 3, 16, 0.25)
+            with pytest.raises(ValueError):
                 ac.cross_attn_bwd_dkv(*qkvd, r, r, 3, 16, 0.25)
         assert ac.launches == before
 
     @pytest.mark.parametrize("dh", (16, 32, 64))
     def test_bf16_training_kernels_do_not_spill(self, cuda, dh):
         """Local memory 0 (no spills), from the CUDA runtime's view of each
-        bfloat16 training kernel at its own block size: the LSE forward and
-        dk/dv one persistent block of 384 threads an SM, with the shared bytes
-        and rows of `hopper_fwd_plan` / `hopper_dkv_plan`; dq at least 2
-        blocks of 128 threads an SM."""
+        bfloat16 training kernel at its own block size: each one persistent
+        block of 384 threads an SM, with the shared bytes and rows of
+        `hopper_fwd_plan` / `hopper_dq_plan` / `hopper_dkv_plan`."""
         plans = {"cross_attn_fwd_lse_bf16": ac.hopper_fwd_plan(
                      "cross_attn_fwd_lse_bf16", 1, 128, dh, 2, 64),
+                 "cross_attn_bwd_dq_bf16": ac.hopper_dq_plan(1, 128, dh, 2, 64),
                  "cross_attn_bwd_dkv_bf16": ac.hopper_dkv_plan(1, 128, dh, 2, 64)}
         for name, plan in plans.items():
             info = ac.kernel_info(name, dh)
@@ -361,9 +368,6 @@ class TestBf16TrainingKernels:
             assert info["blocks_per_sm"] * info["threads"] >= 384, (name, info)
             for key in ("threads", "tile_rows", "shared_bytes"):
                 assert info[key] == plan[key], (name, key, info, plan)
-        info = ac.kernel_info("cross_attn_bwd_dq_bf16", dh)
-        assert info["local_bytes"] == 0, info
-        assert info["blocks_per_sm"] >= 2, info
 
     def test_bf16_autograd_launches_the_bf16_kernels(self, cuda):
         """`fused_view_attention` under grad on bfloat16 CUDA tensors: a cross
@@ -628,6 +632,10 @@ class TestHopperPlan:
             ac.hopper_dkv_plan(1, 64, 64, 1, 64)
         with pytest.raises(ValueError):
             ac.hopper_dkv_plan(1, 65, 64, 2, 32)
+        with pytest.raises(ValueError):
+            ac.hopper_dq_plan(1, 64, 48, 2, 32)
+        with pytest.raises(ValueError):
+            ac.hopper_dq_plan(1, 64, 64, 1, 64)
 
 
 class TestHopperDkvPlan:
@@ -685,4 +693,72 @@ class TestHopperDkvPlan:
         assert (plan["items"], plan["grid"]) == (items, min(items, 132))
         assert plan["waves"] == pytest.approx(items / min(items, 132))
         assert plan["query_tiles"] == tiles
+        assert plan["rows_per_stored"] == pytest.approx(rows)
+
+
+class TestHopperDqPlan:
+    """The Hopper dq kernel's launch plan and walk (`hopper_dq_plan`), on the
+    CPU; the card tests hold the plan to the C layout (`kernel_info`). Every
+    query row of every view is owned by exactly one work item, inside its
+    view; each item streams every other view's key exactly once in 64-key
+    tiles, and a key of its own view never weighs."""
+
+    @pytest.mark.parametrize("V", (2, 3, 5))
+    @pytest.mark.parametrize("K", (1, 15, 17, 400, 1024, 2048))
+    def test_walk_owns_queries_and_streams_other_views_keys_once(self, K, V):
+        S = V * K
+        plan = ac.hopper_dq_plan(3, S, 64, V, K)
+        walk = plan["walk"]
+        assert sorted(r for r0, n, _ in walk for r in range(r0, r0 + n)) == list(range(S))
+        for row0, n_live, tiles in walk:
+            qv = row0 // K
+            assert 1 <= n_live <= ac.HOPPER_ROWS and (row0 + n_live - 1) // K == qv
+            seen = []
+            for x0, n_valid in tiles:
+                assert 1 <= n_valid <= ac.HOPPER_KEYS and x0 + n_valid <= S
+                seen += range(x0, x0 + n_valid)
+            assert all(x // K != qv for x in seen)
+            assert sorted(seen) == [x for x in range(S) if x // K != qv]
+            assert len(tiles) == plan["key_tiles"][qv]
+        assert plan["items"] == 3 * len(walk)
+        assert plan["grid"] == min(plan["items"], 132)
+
+    def test_walk_is_the_dkv_walk(self):
+        """dq walks dk/dv's items with the roles of the rows swapped: one walk
+        (`BwdWalk` in the source) for both kernels."""
+        for V, K in ((2, 15), (3, 129), (5, 400)):
+            dq = ac.hopper_dq_plan(2, V * K, 32, V, K)
+            dkv = ac.hopper_dkv_plan(2, V * K, 32, V, K)
+            assert dq["walk"] == dkv["walk"] and dq["key_tiles"] == dkv["query_tiles"]
+            assert (dq["items"], dq["grid"]) == (dkv["items"], dkv["grid"])
+
+    @pytest.mark.parametrize("dh", (16, 32, 64))
+    def test_shared_bytes_and_swizzle(self, dh):
+        """Two Q/dO buffers of 128 rows each for Q and dO, 4 stages of 64 K and
+        64 V rows (each row 2 dh bytes, swizzled to the row width), 12
+        mbarriers, inside a block's 227 KB."""
+        plan = ac.hopper_dq_plan(1, 128, dh, 2, 64)
+        assert plan["swizzle_bytes"] == 2 * dh
+        assert plan["shared_bytes"] == 1024 + (4 * 128 + 2 * 4 * 64) * 2 * dh + 8 * 12
+        assert plan["shared_bytes"] <= ac.SMEM_BYTES
+        assert (plan["threads"], plan["tile_rows"], plan["key_rows"], plan["stages"]) == (
+            384, 128, 64, 4)
+
+    @pytest.mark.parametrize("BH,V,K,items,tiles,rows", [
+        (32, 5, 400, 640, [25, 26, 26, 26, 25], 448 / 400),
+        (32, 5, 1024, 1280, [64, 64, 64, 64, 64], 1.0),
+        (32, 2, 1024, 512, [16, 16], 1.0),
+        (32, 2, 2048, 1024, [32, 32], 1.0),
+        (1, 2, 15, 2, [1, 1], 64 / 15)])
+    def test_persistent_grid(self, BH, V, K, items, tiles, rows):
+        """At the training shape 32x2000x64 the 640 items of 128 query rows
+        take 4.85 waves of 132 blocks and stream 25-26 tiles of 64 keys (one
+        view at a time would take 28); the eval (32x5120x64) and pair
+        (32x2048x64, 32x4096x64) shapes as the kernel phase records them. The
+        last item of each view at K = 400 keeps 16 live rows: one consumer
+        warpgroup computes 64 rows and the other none."""
+        plan = ac.hopper_dq_plan(BH, V * K, 64, V, K)
+        assert (plan["items"], plan["grid"]) == (items, min(items, 132))
+        assert plan["waves"] == pytest.approx(items / min(items, 132))
+        assert plan["key_tiles"] == tiles
         assert plan["rows_per_stored"] == pytest.approx(rows)

@@ -24,7 +24,8 @@ shape (32 x 2000 x 64) and at the eval and pair shapes the kernel phase of
 seeded bfloat16 q, k, v, dO, the tree's own float32 LSE and dvec = rowsum(dO
 O); with `--check` the output and LSE (1e-5) and the gradients (the backward's
 gate, `cross_attn_bwd_bf16_slack`) against the plain twins; beside each shape
-SDPA's forward and its backward through autograd (dq, dk, dv together).
+SDPA's forward and its backward through autograd (dq, dk, dv together), and a
+line with dq + dk/dv (the sum of the two kernels' times) beside that backward.
 `--kernels all` times both sets.
 
 Prints one JSON line per shape and one with the card's name and power limit.
@@ -126,13 +127,20 @@ def time_training_kernels(ac, root, check, reps):
         sdpa_bwd = cuda_ms(lambda: torch.autograd.grad(out, (q4, k4, v4), do[:, None],
                                                        retain_graph=True), reps)
         del out, q4, k4, v4
+        ms = {}
         for name, run in runs.items():
+            ms[name] = cuda_ms(run, reps)
             rec = {"kernel": name, "path": path, "shape": [BH, S, dh], "root": str(root),
-                   **gates.get(name, {}), "ms": cuda_ms(run, reps)}
+                   **gates.get(name, {}), "ms": ms[name]}
             rec["sdpa_ms" if name == "cross_attn_fwd_lse_bf16" else "sdpa_bwd_ms"] = (
                 sdpa_fwd if name == "cross_attn_fwd_lse_bf16" else sdpa_bwd)
             records.append(rec)
             print(json.dumps(rec), flush=True)
+        rec = {"kernel": "dq + dk/dv", "path": path, "shape": [BH, S, dh], "root": str(root),
+               "ms": ms["cross_attn_bwd_dq_bf16"] + ms["cross_attn_bwd_dkv_bf16"],
+               "sdpa_bwd_ms": sdpa_bwd}
+        records.append(rec)
+        print(json.dumps(rec), flush=True)
         del q, k, v, do, o, lse, dvec, args, runs
         torch.cuda.empty_cache()
     return records, failed
