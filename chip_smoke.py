@@ -69,7 +69,19 @@ Phases, each fatal on failure:
                    the stage times of one 8-tuple sub-chunk, the
                    unrolled-Jacobi share of the pose stage, and the device's
                    busy time under torch.profiler.
-  6. bf16       -- the same evaluation in bfloat16 (`compute_dtype=
+  6. init_modes -- the multi-view init modes and the host-tree pipeline: the
+                   4 exact synthetic 5-tuples of `reference` through
+                   `multi_view_pose_pipeline_batch` in w8pt_ba, ransac,
+                   ransac_ba and w8pt_ba with `ba_retriangulate`, held to the
+                   JAX package's per-mode bounds, and the host-tree w8pt_ba
+                   against `multi_view_pose_device`; then `evaluate` at the
+                   main_path width on 8 tuples in ransac and in ransac_ba
+                   (the matcher at threshold 0): finite errors, exact
+                   launches 7 / 21 / 1 a sub-chunk, a RANSAC pose for half
+                   the pairs, tuples/s, a sub-chunk's stage times (host
+                   RANSAC, trees, device stage B), and its host syncs by the
+                   port's frames: only the packed copies the modes need.
+  7. bf16       -- the same evaluation in bfloat16 (`compute_dtype=
                    "bfloat16"`): on the bfloat16 kernels and on the plain
                    bfloat16 versions, tuples/s, exact launches a chunk (7
                    `attn_fwd_bf16`, 21 `cross_attn_fwd_bf16`, 1
@@ -82,7 +94,7 @@ Phases, each fatal on failure:
                    the stage times of a sub-chunk and the matcher's device
                    time by kernel group (the bf16 self and cross kernels
                    apart) under torch.profiler.
-  7. train_path -- `cli.train.train` at the full ScanNet 5-tuple training
+  8. train_path -- `cli.train.train` at the full ScanNet 5-tuple training
                    width (V=5, K=400, B=8, 480x480, 7 x (self + 3 x cross), 100
                    iterations, stage 1, f32) on seeded plane scenes with exact
                    depth: 6 steps on a repeated batch plus validation, on the
@@ -91,14 +103,14 @@ Phases, each fatal on failure:
                    the two runs agree, launch counts per step, no host sync
                    inside a step, a checkpoint reads back; steps/s, tuples/s
                    and a per-stage breakdown of one step.
-  8. pose_path  -- stage 2, `cli.train.train --pose_loss --init_exp_name` on
+  9. pose_path  -- stage 2, `cli.train.train --pose_loss --init_exp_name` on
                    the kernel run of train_path, at the same width with the
                    conf MLP, on seeded sphere-field scenes: 6 steps plus
                    validation. Steps/s of the loop, finite match, rotation and
                    translation losses, the guard's skips, launch counts per
                    step, no host sync inside a step, first-step gradients of
                    kernels against plain at a conditioned point.
-  9. train_bf16 -- bfloat16 training, `cli.train.train --compute_dtype
+ 10. train_bf16 -- bfloat16 training, `cli.train.train --compute_dtype
                    bfloat16` at the train_path width: 6 stage-1 steps on the
                    bfloat16 kernels and on the plain bfloat16 versions from
                    the same seeded state, then 3 stage-2 steps (`--pose_loss
@@ -111,7 +123,7 @@ Phases, each fatal on failure:
                    the plain bfloat16 run's + 1e-3 (at the initial weights and
                    at the conditioned point); steps/s and a per-stage
                    breakdown.
- 10. cli        -- both command lines through `python -m` from a ScanNet-format
+ 11. cli        -- both command lines through `python -m` from a ScanNet-format
                    tree (sphere-field scenes at 480x640 with exact depth,
                    written by `data/synthetic.write_scannet_format`): stage 1
                    of `cli.train` (V=5, K=400, B=8, jitter on, 2 steps, the
@@ -132,7 +144,11 @@ Phases, each fatal on failure:
                    eval command line once more with `--compute_dtype
                    bfloat16` (exit 0, finite AUCs), and both training stages
                    with `--compute_dtype bfloat16` (exit 0, finite losses).
- 11. pairs      -- the two-view pair benchmark: `cli.eval_pairs` through
+                   Then seeded upstream-layout checkpoints (SuperPoint and
+                   a 5-tuple matcher) through `tools/torch_import_weights.py`
+                   and the eval command line with `--init_mode ransac_ba` on
+                   them (exit 0, finite AUCs).
+ 12. pairs      -- the two-view pair benchmark: `cli.eval_pairs` through
                    `python -m` (w8pt_ba, three AUCs) on 16 ScanNet-format pairs
                    with real ScanNet's 1296x968 color (537 x 720 frames on a
                    640 x 768 bucket, K = 1024), a seeded two-view matcher (9 x
@@ -223,6 +239,12 @@ CONDITIONED_RESCALE = {"q_proj": 1 / 4, "k_proj": 1 / 4, "final_proj": 1 / 32}
 # norm, at the initial weights and at the conditioned point.
 BF16_GRAD_FACTOR = 1.5
 BF16_GRAD_SLACK = 1e-3
+# The init_modes phase's synthetic tuples: the bounds of the JAX package's
+# test_ransac_modes_match_w8pt_on_high_inlier_fixture (max pairwise rotation /
+# translation-direction error in degrees) and of its
+# test_device_pipeline_matches_host_tree_pipeline (extrinsics)
+INIT_MODE_BOUNDS = {"w8pt_ba": (1.0, 5.0), "ransac_ba": (1.5, 8.0), "ransac": (10.0, 45.0)}
+HOST_TREE_TOL = 5e-4
 # Held against its plain version in the kernel phase only: no entry point of
 # the reference package asks for the exact log-domain iteration without grad.
 OFF_PATH_KERNELS = ("sinkhorn_log",)
@@ -1347,13 +1369,13 @@ def reference_phase():
     emit({"phase": "reference", "tuples": len(cases), "max_rot_err_deg": worst, "tol": 1.0})
 
 
-def _full_width_models(seed=0, compute_dtype="float32"):
+def _full_width_models(seed=0, compute_dtype="float32", match_threshold=0.2):
     """SuperPoint and the 5-view matcher at the eval widths with seeded random
     weights drawn as flax draws them by default (LeCun normal, zero bias):
     after 28 GNN layers the pair scores reach |s| ~ 1e2-1e3, the regime the
     Sinkhorn kernel must survive. Returns (superpoint, kernel matcher with
     "auto" resolved on the GPU, plain matcher); the same weights in either
-    `compute_dtype`."""
+    `compute_dtype` and at any `match_threshold`."""
     import types
 
     import torch
@@ -1373,7 +1395,7 @@ def _full_width_models(seed=0, compute_dtype="float32"):
         return MultiViewMatcher(MatcherConfig(
             gnn_layers=default_gnn_layers(7, 3), sinkhorn_iterations=100, conf_mlp=True,
             multi_frame_matching=True, attention_impl=att, sinkhorn_impl=sink,
-            compute_dtype=compute_dtype))
+            compute_dtype=compute_dtype, match_threshold=match_threshold))
 
     from e2e_multi_view_matching_tpu_torch.models.convert import init_like_flax_
 
@@ -1497,6 +1519,206 @@ def main_path_phase(n_tuples=8):
     for k in ("attn_fwd", "cross_attn_fwd", "sinkhorn_scaling"):
         check(launches.get(k, 0) >= 1, f"main path never launched {k}")
     return launches, (sp, kernels, images, intr, size)
+
+
+def _pose_errors(gt, est):
+    """(max rotation error, max translation-direction error) in degrees over the
+    pairs of one tuple: GT world->cam extrinsics against estimated ones."""
+    rot = tr = 0.0
+    V = len(gt)
+    for j in range(V):
+        for i in range(j):
+            T_gt = gt[j] @ np.linalg.inv(gt[i])
+            T = est[j] @ np.linalg.inv(est[i])
+            cos = np.clip((np.trace(T_gt[:3, :3].T @ T[:3, :3]) - 1) / 2, -1, 1)
+            rot = max(rot, float(np.degrees(np.arccos(cos))))
+            n = np.linalg.norm(T_gt[:3, 3]) * np.linalg.norm(T[:3, 3])
+            if n > 1e-9:
+                c = np.clip(T_gt[:3, 3] @ T[:3, 3] / n, -1, 1)
+                tr = max(tr, float(np.degrees(np.arccos(c))))
+    return rot, tr
+
+
+def _host_sync_sites(fn):
+    """(syncs, fn's result): each host sync of `fn()` as the port's frames from
+    the synchronising call outwards, innermost first, e.g.
+    ("config.py:fetch_packed:134", "eval_multi_view.py:dispatch:221", ...)."""
+    import traceback
+    import warnings
+
+    import torch
+
+    syncs = []
+
+    def record(message, category, filename, lineno, file=None, line=None):
+        if "synchronizing CUDA operation" in str(message):
+            frames = [f for f in traceback.extract_stack()[:-1] if PKG in f.filename]
+            syncs.append(tuple(f"{Path(f.filename).name}:{f.name}:{f.lineno}"
+                               for f in reversed(frames)))
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = record
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return syncs, out
+
+
+def init_modes_phase(card, n_tuples=8):
+    """The multi-view init modes (`--init_mode ransac|ransac_ba`) and the
+    host-tree pipeline on the card.
+
+    (a) The 4 exact synthetic 5-tuples of `reference_phase` through
+    `multi_view_pose_pipeline_batch` in w8pt_ba, ransac and ransac_ba, and in
+    w8pt_ba with `ba_retriangulate=True`: the largest pairwise rotation and
+    translation-direction errors within INIT_MODE_BOUNDS; the host-tree
+    w8pt_ba extrinsics within HOST_TREE_TOL of `multi_view_pose_device`'s.
+
+    (b) `evaluate` at full width (the main path's seeded weights and images,
+    V=5, K=1024, 480x640, 7 x (self + 3 x cross), 100 iterations, conf MLP,
+    eval_batch 8) on `n_tuples` tuples (one sub-chunk at 8) in ransac and in
+    ransac_ba, on the kernels, with the matcher at threshold 0 (at the drawn
+    weights no match clears 0.2, and RANSAC needs matches; nearly all of them
+    are wrong, so RANSAC runs to its iteration cap): finite errors, exact
+    launches a sub-chunk (7 `attn_fwd`, 21 `cross_attn_fwd`, 1
+    `sinkhorn_scaling`, nothing else), tuples/s, a RANSAC pose for at least
+    half the pairs, the stage times of one sub-chunk (stage A: the host gather
+    and RANSAC, in ransac_ba also the device two-view BA; the host trees; the
+    device stage B with its copy back). The host syncs of the evaluate run by
+    line; the only ones allowed are the copies the modes need by design, each
+    through `fetch_packed`:
+      - `cli/eval_multi_view.py::evaluate.dispatch`: the chunk's keypoints,
+        matches and confidences to the host, for RANSAC;
+      - `mvba/pipeline.py::_ransac_relative_poses` (ransac_ba): the refined
+        poses and their gate to the host, for the trees;
+      - `mvba/pipeline.py::multi_view_pose_from_stage_a`: the extrinsics to
+        the host.
+    Returns {"eval_ransac": launches, "eval_ransac_ba": launches}."""
+    import dataclasses
+    import types
+
+    import torch
+
+    from e2e_multi_view_matching_tpu_torch.cli.eval_multi_view import (
+        evaluate,
+        infer_subchunk,
+    )
+    from e2e_multi_view_matching_tpu_torch.mvba import pipeline as tpipe
+    from e2e_multi_view_matching_tpu_torch.utils.config import fetch_packed
+
+    Cfg = tpipe.MultiViewPipelineConfig
+    dev = torch.device("cuda")
+
+    # (a) exact synthetic tuples
+    rng = np.random.default_rng(0)
+    cases = [_synthetic_tuple(rng) for _ in range(4)]
+    gt = [c[0] for c in cases]
+    args = [np.stack([c[k] for c in cases]) for k in (1, 2, 3, 4)]
+    synthetic = {}
+    for name, cfg in (("w8pt_ba", Cfg()), ("ransac", Cfg(init_mode="ransac")),
+                      ("ransac_ba", Cfg(init_mode="ransac_ba")),
+                      ("w8pt_ba_retriangulate", Cfg(ba_retriangulate=True))):
+        t0 = time.perf_counter()
+        extr = tpipe.multi_view_pose_pipeline_batch(*args, cfg, device="cuda")
+        seconds = time.perf_counter() - t0
+        errs = [_pose_errors(g, e) for g, e in zip(gt, extr)]
+        synthetic[name] = {"max_rot_err_deg": max(e[0] for e in errs),
+                           "max_transl_err_deg": max(e[1] for e in errs),
+                           "bounds_deg": INIT_MODE_BOUNDS[cfg.init_mode],
+                           "finite": bool(np.all(np.isfinite(extr))), "seconds": seconds}
+        if name == "w8pt_ba":
+            fused = tpipe.multi_view_pose_device(
+                *(torch.from_numpy(a).cuda() for a in args)).cpu().numpy()
+            synthetic[name]["host_tree_vs_device_max_abs"] = float(np.abs(extr - fused).max())
+
+    # (b) full width on the kernels, matcher at threshold 0
+    sp, kernels, _ = _full_width_models(match_threshold=0.0)
+    sp.cuda()  # the weights' copies are set-up, not a sub-chunk's syncs
+    kernels.cuda()
+    data = _dataset(8)
+    dataset = [data[i % len(data)] for i in range(n_tuples)]
+    opt = types.SimpleNamespace(tuple_size=5, max_tuples=None, eval_batch=8, eval_scan=1,
+                                no_pipeline=False, compute_dtype="float32")
+    s = dataset[:8]
+    images = torch.from_numpy(np.stack([x["images"] for x in s])).cuda()
+    intr_np = np.stack([x["intr"][:, :3, :3] for x in s])
+    size = torch.tensor([480.0, 640.0], device="cuda").expand(8, 5, 2)
+    runs, by_path = {}, {}
+    for mode in ("ransac", "ransac_ba"):
+        cfg = Cfg(init_mode=mode)
+        # one evaluate: its time, launches and host syncs (the sync capture
+        # costs a stack walk at each of the 2-3 syncs)
+        _reset_launches()
+        t0 = time.perf_counter()
+        syncs, errors = _host_sync_sites(lambda: evaluate(opt, sp, kernels, dataset, cfg))
+        dt = time.perf_counter() - t0
+        launches = _launches()
+        by_path[f"eval_{mode}"] = launches
+        finite = len(errors[0]) == n_tuples * 10 and bool(np.all(np.isfinite(errors[1])))
+
+        # one sub-chunk, stage by stage
+        with torch.inference_mode():
+            kpts, m0, conf, extr_dev = infer_subchunk(
+                sp, kernels, images, torch.from_numpy(intr_np).cuda(), size, cfg)
+            kpts, m0, conf = fetch_packed([kpts, m0, conf])
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            stage_a = tpipe._ransac_stage_a(kpts, intr_np, m0, conf, cfg, dev)
+            torch.cuda.synchronize()
+            stage_a_s = time.perf_counter() - t0
+            profile = {}
+            tpipe.multi_view_pose_from_stage_a(stage_a, cfg, profile=profile)
+        valid = stage_a["valid"].numpy()
+        matches = (m0 >= 0).sum(-1)
+
+        # the caller of each copy: "file:function" of the frame below fetch_packed
+        callers = sorted({fr[1].rsplit(":", 1)[0] if len(fr) > 1 else " ".join(fr)
+                          for fr in syncs})
+        allowed = {"eval_multi_view.py:dispatch", "pipeline.py:multi_view_pose_from_stage_a"}
+        if mode == "ransac_ba":
+            allowed.add("pipeline.py:_ransac_relative_poses")
+        runs[mode] = {
+            "tuples_per_s": n_tuples / dt, "seconds": dt, "launches": launches,
+            "errors_finite": finite, "pose_valid_share": float(valid.mean()),
+            "matches_per_pair": {"min": int(matches.min()), "mean": float(matches.mean())},
+            "sub_chunk_seconds": {"stage_a_ransac_host": stage_a_s, **profile},
+            "fused_extrinsics": extr_dev is not None,
+            "host_syncs_in_sub_chunk": ["  <-  ".join(fr[:2]) for fr in syncs[:20]],
+            "host_sync_count": len(syncs), "sync_callers": callers,
+            "only_allowed_syncs": (all(fr and fr[0].startswith("config.py:fetch_packed:")
+                                       for fr in syncs) and set(callers) == allowed)}
+    emit({"phase": "init_modes", "card": card,
+          "config": {"V": 5, "K": 1024, "image": [480, 640], "gnn": "7x(self+3xcross)",
+                     "sinkhorn_iters": 100, "eval_batch": 8, "tuples": n_tuples,
+                     "match_threshold": 0.0},
+          "synthetic": synthetic, "runs": runs})
+    expected = {**{k: 0 for k in by_path["eval_ransac"]}, "attn_fwd": 7 * (n_tuples // 8),
+                "cross_attn_fwd": 21 * (n_tuples // 8), "sinkhorn_scaling": n_tuples // 8}
+    for mode, r in runs.items():
+        check(r["errors_finite"], f"init_modes ({mode}): errors missing or non-finite")
+        check(not r["fused_extrinsics"],
+              f"init_modes ({mode}): infer_subchunk ran the fused pose stage")
+        check(r["pose_valid_share"] >= 0.5, f"init_modes ({mode}): RANSAC posed "
+              f"{r['pose_valid_share']:.2f} of the pairs, fewer than half")
+        check(r["launches"] == expected, f"init_modes ({mode}): launched {r['launches']}, "
+              f"expected {expected}")
+        check(r["only_allowed_syncs"], f"init_modes ({mode}): host syncs "
+              f"{r['host_syncs_in_sub_chunk']}; allowed: the packed copies of the "
+              "phase's docstring")
+    for name, r in synthetic.items():
+        b = r["bounds_deg"]
+        check(r["finite"] and r["max_rot_err_deg"] < b[0] and r["max_transl_err_deg"] < b[1],
+              f"init_modes: synthetic {name} errors {r['max_rot_err_deg']:.3f} / "
+              f"{r['max_transl_err_deg']:.3f} deg, bounds {b}")
+    check(synthetic["w8pt_ba"]["host_tree_vs_device_max_abs"] < HOST_TREE_TOL,
+          f"init_modes: host-tree w8pt_ba differs from multi_view_pose_device by "
+          f"{synthetic['w8pt_ba']['host_tree_vs_device_max_abs']}")
+    return by_path
 
 
 def bf16_phase(n_tuples=8):
@@ -2462,6 +2684,38 @@ TRACE_KERNELS = {"attn_fwd": r"\battn_fwd_kernel<",
                  "sinkhorn_bwd": r"\bbwd_cluster_kernel<"}
 
 
+def _upstream_matcher(rng, gnn_layers=7, cross_attention_layers=3, D=256):
+    """A seeded matcher training checkpoint's state dict in the reference's
+    layout (the DataParallel `module.` prefix, Conv1d (out, in, 1) weights
+    drawn LeCun normal, BatchNorm1d as a fresh module leaves it, the fork's
+    conf MLP) at the 5-tuple schedule: ['self'] + ['cross'] * 3, 7 times."""
+    sd = {}
+
+    def conv(name, o, i):
+        sd[f"{name}.weight"] = (rng.normal(size=(o, i, 1)) * i ** -0.5).astype(np.float32)
+        sd[f"{name}.bias"] = np.zeros(o, np.float32)
+
+    def mlp(prefix, dims):
+        for li in range(len(dims) - 1):
+            conv(f"{prefix}.{3 * li}", dims[li + 1], dims[li])
+            if li < len(dims) - 2:
+                o, bn = dims[li + 1], f"{prefix}.{3 * li + 1}"
+                sd[f"{bn}.weight"], sd[f"{bn}.bias"] = np.ones(o, np.float32), np.zeros(
+                    o, np.float32)
+                sd[f"{bn}.running_mean"] = np.zeros(o, np.float32)
+                sd[f"{bn}.running_var"] = np.ones(o, np.float32)
+
+    mlp("kenc.encoder", (3, 32, 64, 128, 256, D))
+    for li in range((1 + cross_attention_layers) * gnn_layers):
+        for name in ("proj.0", "proj.1", "proj.2", "merge"):
+            conv(f"gnn.layers.{li}.attn.{name}", D, D)
+        mlp(f"gnn.layers.{li}.mlp", (2 * D, 2 * D, D))
+    conv("final_proj", D, D)
+    sd["bin_score"] = np.asarray(1.0, np.float32)
+    mlp("conf_mlp", (2 * D + 1, 256, 64, 1))
+    return {f"module.{k}": v for k, v in sd.items()}
+
+
 def _upstream_superpoint(rng):
     """A seeded SuperPoint state dict in the upstream magicleap layout, drawn
     as flax draws a convolution (LeCun normal, zero bias)."""
@@ -2480,13 +2734,19 @@ def _upstream_superpoint(rng):
 def _run_cli(module, args, log_path):
     """`python -m <port>.cli.<module> args` from the repository root; returns
     (its log, wall seconds). Fails on a non-zero exit."""
+    return _run_python(["-m", f"{PKG}.cli.{module}", *args], log_path)
+
+
+def _run_python(argv, log_path):
+    """`python argv` from the repository root; returns (its log, wall seconds).
+    Fails on a non-zero exit."""
     t0 = time.perf_counter()
     with open(log_path, "w") as log:
-        proc = subprocess.run([sys.executable, "-m", f"{PKG}.cli.{module}", *args],
-                              cwd=ROOT, stdout=log, stderr=subprocess.STDOUT, timeout=900)
+        proc = subprocess.run([sys.executable, *argv], cwd=ROOT, stdout=log,
+                              stderr=subprocess.STDOUT, timeout=900)
     wall = time.perf_counter() - t0
     text = Path(log_path).read_text()
-    check(proc.returncode == 0, f"cli: {module} {' '.join(args)} exited {proc.returncode}:\n"
+    check(proc.returncode == 0, f"cli: {' '.join(argv)} exited {proc.returncode}:\n"
           f"{text[-4000:]}")
     return text, wall
 
@@ -2751,6 +3011,38 @@ def cli_phase(workdir, card, n_steps=2, hd_steps=20):
           "stage2": {"exp": exp7, "wall_seconds": wall7, "steps": steps7, "val_losses": vals7}})
     check(len(steps6) == 1 and len(steps7) == 1 and cfg7["compute_dtype"] == "bfloat16"
           and cfg7["pose_loss"], f"cli: bfloat16 training logged {steps6} / {steps7}")
+
+    # upstream-layout checkpoints (SuperPoint and a 5-tuple matcher, seeded)
+    # through the import tool into a run directory, then the eval command line
+    # in ransac_ba on it. The directory starts with the stage-2 run's cfg.json,
+    # which the tool keeps: its stub, like the JAX package's, lacks the
+    # detector keys that the eval main() reads
+    up, imp_dir = f"{workdir}/upstream", f"{ckpt}/imported"
+    os.makedirs(up)
+    os.makedirs(imp_dir)
+    to_t = lambda sd: {k: torch.from_numpy(v) for k, v in sd.items()}  # noqa: E731
+    torch.save(to_t(_upstream_superpoint(np.random.default_rng(8))), f"{up}/superpoint_v1.pth")
+    torch.save({"epoch": 0, "model": to_t(_upstream_matcher(np.random.default_rng(11)))},
+               f"{up}/model.ckpt")
+    shutil.copy(f"{exp_dir}/cfg.json", f"{imp_dir}/cfg.json")
+    _, wall8 = _run_python(["tools/torch_import_weights.py", "--superpoint",
+                            f"{up}/superpoint_v1.pth", "--matcher", f"{up}/model.ckpt",
+                            "--out_dir", imp_dir, "--gnn_layers", "7",
+                            "--cross_attention_layers", "3", "--tuple_size", str(V)],
+                           f"{workdir}/cli_import.log")
+    check(all(os.path.exists(f"{imp_dir}/{n}") for n in ("superpoint.ckpt", "model.ckpt")),
+          f"cli: the import tool wrote {sorted(os.listdir(imp_dir))}")
+    ransac_args = [("imported" if a == exp2 else a) for a in eval_args]
+    text9, wall9 = _run_cli("eval_multi_view", ransac_args + ["--init_mode", "ransac_ba"],
+                            f"{workdir}/cli_eval_ransac_ba.log")
+    with open(f"{imp_dir}/multi_view_scannet.json") as f:
+        ransac_metrics = json.load(f)
+    emit({"phase": "cli_ransac_ba", "card": card, "import_wall_seconds": wall8,
+          "eval_wall_seconds": wall9, "metrics": ransac_metrics,
+          "tuples": int(re.findall(r"loaded (\d+) test tuples", text9)[-1])})
+    check(set(ransac_metrics) == set(auc_keys)
+          and all(math.isfinite(ransac_metrics[k]) for k in auc_keys),
+          f"cli: ransac_ba eval metrics {ransac_metrics}")
     return launches
 
 
@@ -3166,8 +3458,8 @@ def pairs_phase(workdir, card, n_pairs=16):
     return total
 
 
-PHASES = ("kernel", "reference", "main_path", "bf16", "train_path", "pose_path",
-          "train_bf16", "cli", "pairs")
+PHASES = ("kernel", "reference", "main_path", "init_modes", "bf16", "train_path",
+          "pose_path", "train_bf16", "cli", "pairs")
 
 
 def main(argv=None):
@@ -3218,6 +3510,10 @@ def main(argv=None):
                 del sub_chunk
                 torch.cuda.empty_cache()
             lap("main_path")
+            if "init_modes" in phases:
+                by_path.update(init_modes_phase(card))
+                torch.cuda.empty_cache()
+            lap("init_modes")
             if "bf16" in phases:
                 by_path["eval_bf16"] = bf16_phase()
                 torch.cuda.empty_cache()

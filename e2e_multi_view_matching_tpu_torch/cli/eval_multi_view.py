@@ -4,23 +4,27 @@ Counterpart of `e2e_multi_view_matching_tpu/cli/eval_multi_view.py`:
 
     python -m e2e_multi_view_matching_tpu_torch.cli.eval_multi_view \
         --data_dir ... --checkpoint_dir ... --exp_name <run> --dataset scannet \
-        --tuple_size 5 [--test_tuple_file <csv>]
+        --tuple_size 5 [--test_tuple_file <csv>] [--init_mode w8pt_ba|ransac|ransac_ba]
 
 `main()` evaluates the run's `model.ckpt` (matcher) with the run's
 `superpoint.ckpt` (a state dict of the port's `SuperPoint`, e.g. from
-`models/torch_import.py`) on the fixed test tuples, and writes
+`tools/torch_import_weights.py`) on the fixed test tuples, and writes
 `<exp_dir>/multi_view_<dataset>.json`. `evaluate` runs fixed tuples through
-SuperPoint over all B*V frames, the matcher, and the fused `w8pt_ba` pose
-pipeline on the device, then scores
-pairwise pose/rotation/translation errors on the host; `write_result` turns
-them into AUC@5/10/20 JSON. Chunks of `eval_scan x eval_batch` tuples are
-queued one ahead: the next chunk's device work is enqueued before the current
-chunk's extrinsics are copied to the host, the only sync of a chunk.
+SuperPoint over all B*V frames and the matcher on the device, then the pose
+pipeline of `--init_mode`, and scores pairwise pose/rotation/translation
+errors on the host; `write_result` turns them into AUC@5/10/20 JSON.
+
+- `w8pt_ba` (default): the fused pose pipeline on the device. Chunks of
+  `eval_scan x eval_batch` tuples are queued one ahead: the next chunk's
+  device work is enqueued before the current chunk's extrinsics are copied
+  to the host, the only sync of a chunk.
+- `ransac`, `ransac_ba`: one packed copy of the chunk's keypoints, matches
+  and confidences to the host, OpenCV's RANSAC of every pair there, the
+  host-tree pipeline (`mvba/pipeline.py::multi_view_pose_pipeline_batch`);
+  synchronous, as the JAX package's unfused path is.
 
 Not ported yet: `--data_parallel` above 1 (ROADMAP Queue 1, the distributed
-modes) and the RANSAC init modes of the multi-view pipeline (`--init_mode
-ransac|ransac_ba`, Queue 1), though the host RANSAC itself (`geom/ransac.py`) is there
-for `cli/eval_pairs.py`.
+modes).
 """
 
 import argparse
@@ -40,8 +44,10 @@ from e2e_multi_view_matching_tpu_torch.models.matcher import (
 )
 from e2e_multi_view_matching_tpu_torch.models.superpoint import SuperPoint, SuperPointConfig
 from e2e_multi_view_matching_tpu_torch.mvba.pipeline import (
+    INIT_MODES,
     MultiViewPipelineConfig,
     multi_view_pose_device,
+    multi_view_pose_pipeline_batch,
 )
 from e2e_multi_view_matching_tpu_torch.train.checkpoint import load_config, load_eval_weights
 from e2e_multi_view_matching_tpu_torch.utils.config import (
@@ -83,8 +89,10 @@ def parse_args(argv=None):
                         help="devices a chunk is sharded over (only 1 until "
                              "parallel/mesh.py is ported)")
     parser.add_argument("--init_mode", type=str, default="w8pt_ba",
-                        choices=["w8pt_ba"],
-                        help="per-pair relative-pose initialization")
+                        choices=list(INIT_MODES),
+                        help="per-pair relative-pose initialization: w8pt_ba on the "
+                             "device, ransac / ransac_ba with OpenCV's RANSAC on the "
+                             "host (ransac_ba then refines with the two-view BA)")
     parser.add_argument("--allow_resampled_tuples", action="store_true",
                         help="permit evaluating freshly sampled tuples when the "
                              "fixed benchmark CSV is absent (NOT the benchmark)")
@@ -125,7 +133,8 @@ def infer_subchunk(superpoint, matcher, images, intr, image_size,
         images: (B, V, H, W, 1); intr: (B, V, 3, 3); image_size: (B, V, 2) (H, W).
     Returns:
         (kpts (B, V, K, 2), matches0 (B, P, K), conf_scores (B, P, K),
-         extrinsics (B, V, 4, 4)).
+         extrinsics (B, V, 4, 4) of the fused `w8pt_ba` pipeline, or None in
+         the other init modes, whose pose stage runs on the host).
     """
     B, V = images.shape[:2]
     sp_out = superpoint(images.reshape((B * V,) + images.shape[2:]))
@@ -134,8 +143,10 @@ def infer_subchunk(superpoint, matcher, images, intr, image_size,
     scores = sp_out["scores"].reshape(B, V, K)
     descs = sp_out["descriptors"].reshape(B, V, K, -1)
     out = matcher(kpts, scores, descs, image_size)
-    extr = multi_view_pose_device(kpts, intr, out["matches0"], out["conf_scores"],
-                                  pipeline_cfg)
+    extr = None
+    if pipeline_cfg.init_mode == "w8pt_ba":
+        extr = multi_view_pose_device(kpts, intr, out["matches0"], out["conf_scores"],
+                                      pipeline_cfg)
     return kpts, out["matches0"], out["conf_scores"], extr
 
 
@@ -169,9 +180,12 @@ def evaluate(opt, superpoint, matcher, dataset, pipeline_cfg=MultiViewPipelineCo
         superpoint, matcher: the port's modules, weights loaded.
         dataset: sequence of {"images" (V, H, W, 1), "intr" (V, 3|4, 3|4),
             "poses" (V, 4, 4)} sample dicts.
+        pipeline_cfg: the pose pipeline; its `init_mode` picks the fused
+            device pipeline (`w8pt_ba`) or the host-tree one.
         device: "cuda" by default; raises if no GPU is present.
     """
     device = resolve_device(device)
+    fuse = pipeline_cfg.init_mode == "w8pt_ba"
     strict_float32()
     superpoint.to(device).eval()
     matcher.to(device).eval()
@@ -183,20 +197,28 @@ def evaluate(opt, superpoint, matcher, dataset, pipeline_cfg=MultiViewPipelineCo
     chunk_len = eval_batch * scan
 
     def dispatch(lo):
-        """Enqueue one chunk on the device; returns (samples, device extrinsics)."""
+        """Enqueue one chunk on the device; returns (samples, extrinsics: on
+        the device in `w8pt_ba`, already on the host in the other modes)."""
         samples = [dataset[i] for i in range(lo, min(lo + chunk_len, n))]
         padded, S = pad_to_grid(samples, eval_batch)
         images = np.stack([s["images"] for s in padded])
         images = to_device(images.reshape((S, eval_batch) + images.shape[1:]), device)
-        intr = np.stack([s["intr"][:, :3, :3] for s in padded])
-        intr = to_device(intr.reshape(S, eval_batch, V, 3, 3), device)
+        intr_np = np.stack([s["intr"][:, :3, :3] for s in padded])
+        intr = to_device(intr_np.reshape(S, eval_batch, V, 3, 3), device)
         H, W = images.shape[3:5]
         image_size = torch.empty((eval_batch, V, 2), device=device)
         image_size[..., 0] = H
         image_size[..., 1] = W
-        extr = [infer_subchunk(superpoint, matcher, images[s], intr[s], image_size,
-                               pipeline_cfg)[3] for s in range(S)]
-        return samples, torch.stack(extr)
+        outs = [infer_subchunk(superpoint, matcher, images[s], intr[s], image_size,
+                               pipeline_cfg) for s in range(S)]
+        if fuse:
+            return samples, torch.stack([o[3] for o in outs])
+        # host-tree init modes: one packed copy of the chunk's matcher outputs,
+        # then the pose pipeline, synchronous; the padding rides along
+        kpts, matches0, conf = fetch_packed(
+            [torch.cat([o[i] for o in outs]) for i in range(3)])
+        return samples, multi_view_pose_pipeline_batch(kpts, intr_np, matches0, conf,
+                                                       pipeline_cfg, device=device)
 
     chunk_starts = list(range(0, n, chunk_len))
     pipeline = not getattr(opt, "no_pipeline", False)
@@ -209,7 +231,9 @@ def evaluate(opt, superpoint, matcher, dataset, pipeline_cfg=MultiViewPipelineCo
                     in_flight = dispatch(chunk_starts[ci + 1])
             else:
                 samples, extr_dev = dispatch(lo)
-            extr_b = fetch_packed([extr_dev])[0].reshape(-1, V, 4, 4)[:len(samples)]
+            if fuse:
+                extr_dev = fetch_packed([extr_dev])[0]
+            extr_b = extr_dev.reshape(-1, V, 4, 4)[:len(samples)]
             for sample, extr in zip(samples, extr_b):
                 for e_pose, e_t, e_r in _pair_errors(sample, extr, V):
                     pose_errors[0].append(e_pose)
@@ -270,7 +294,9 @@ def main(argv=None):
                     "(not the reference benchmark)")
     log.info("loaded %d test tuples", len(test_dataset))
 
-    pose_errors = evaluate(opt, superpoint, matcher, test_dataset, device=device)
+    pose_errors = evaluate(opt, superpoint, matcher, test_dataset,
+                           pipeline_cfg=MultiViewPipelineConfig(init_mode=opt.init_mode),
+                           device=device)
     out_json = os.path.join(exp_dir, f"multi_view_{opt.dataset.split('_')[0]}.json")
     return write_result(pose_errors, out_json)
 

@@ -6,7 +6,9 @@ Residual w * (pi(R_c X + t_c) - obs), camera 0 pinned, one 3D point per
 pairwise match seen by exactly two cameras, so the point block is 3x3
 block-diagonal and the Schur complement leaves 6(N-1) unknowns per tuple,
 solved with eigenvalue thresholding (the scale gauge survives fixing camera
-0). Per-point quantities use the structure-of-arrays layout (small..., B, P);
+0). With `retriangulate=True` (variable projection) the structure is solved
+again by DLT triangulation from the current cameras at every iteration instead
+of riding along as free LM state. Per-point quantities use the structure-of-arrays layout (small..., B, P);
 per-camera sums are products with one-hot (P, N) matrices, as in the JAX
 package.
 """
@@ -15,7 +17,10 @@ import torch
 import torch.nn.functional as F
 
 from e2e_multi_view_matching_tpu_torch.geom.lie import se3_exp
-from e2e_multi_view_matching_tpu_torch.geom.linalg import eig_thresholded_solve
+from e2e_multi_view_matching_tpu_torch.geom.linalg import (
+    eig_thresholded_solve,
+    smallest_eigvec_ii,
+)
 from e2e_multi_view_matching_tpu_torch.geom.soa import (
     abT_soa,
     hat_soa,
@@ -42,6 +47,30 @@ def _proj_jac_soa(Rsel, tsel, Xt):
         torch.stack([zeros, inv_z, -Ap[1] * inv_z * inv_z]),
     ])
     return Ap[:2] * inv_z[None], Ap, J
+
+
+def _triangulate_pairwise_dlt(extr, cam_a, cam_b, xa, xb):
+    """DLT-triangulate each point from its two observing cameras (world frame):
+    extr (..., N, 4, 4), cam_a, cam_b (P,), xa, xb (..., P, 2) -> (..., P, 3).
+
+    The structure solve of the variable-projection mode (`retriangulate=True`),
+    where the DLT's algebraic image-space objective converges tighter than the
+    3-D midpoint; the default init uses the midpoint below.
+    """
+    Pa = extr[..., cam_a, :3, :]  # (..., P, 3, 4)
+    Pb = extr[..., cam_b, :3, :]
+
+    def rows(Pm, x):
+        r0 = x[..., 0:1, None] * Pm[..., 2:3, :] - Pm[..., 0:1, :]
+        r1 = x[..., 1:2, None] * Pm[..., 2:3, :] - Pm[..., 1:2, :]
+        return torch.cat([r0, r1], dim=-2)  # (..., P, 2, 4)
+
+    A = torch.cat([rows(Pa, xa), rows(Pb, xb)], dim=-2)  # (..., P, 4, 4)
+    G = torch.einsum("...ij,...ik->...jk", A, A)
+    h = smallest_eigvec_ii(G, n_iters=3)
+    wc = h[..., 3]
+    sign = torch.where(wc >= 0, 1.0, -1.0)
+    return h[..., :3] / (sign * torch.clamp(wc.abs(), min=1e-9))[..., None]
 
 
 def _triangulate_pairwise(extr, cam_a, cam_b, xa, xb):
@@ -72,15 +101,17 @@ def _triangulate_pairwise(extr, cam_a, cam_b, xa, xb):
 
 def bundle_adjust_multi_view(extr_init, X_init, cam_a, cam_b, xa, xb, w,
                              n_iterations=20, lm_init=0.1, lm_increase=1.5,
-                             lm_decrease=3.5):
+                             lm_decrease=3.5, retriangulate=False):
     """Refine N camera extrinsics + P pairwise-match points, per tuple.
 
     Args:
         extr_init: (B, N, 4, 4) world->cam extrinsics; camera 0 is held fixed.
-        X_init: (B, P, 3) world points.
+        X_init: (B, P, 3) world points (any values when `retriangulate`).
         cam_a, cam_b: (P,) int64 observing camera indices per point.
         xa, xb: (B, P, 2) normalized observations in those cameras.
         w: (B, P) confidence weights; <= 0 disables the point.
+        retriangulate: variable projection -- DLT-triangulate the points from
+            the current cameras before every LM step and after the last one.
     Returns:
         (extr (B, N, 4, 4) best iterate, X (B, P, 3) final points).
     """
@@ -182,6 +213,8 @@ def bundle_adjust_multi_view(extr_init, X_init, cam_a, cam_b, xa, xb, w,
     damp = torch.full_like(scale_ref, lm_init)
     best_r = torch.full_like(scale_ref, float("inf"))
     for _ in range(n_iterations):
+        if retriangulate:
+            Xt = _triangulate_pairwise_dlt(extr, cam_a, cam_b, xa, xb).permute(2, 0, 1)
         delta_c, delta_p, r_norm, ok = lm_step(extr, Xt, damp)
         improved = r_norm < best_r
         best_extr = torch.where(improved[:, None, None, None], extr, best_extr)
@@ -191,6 +224,8 @@ def bundle_adjust_multi_view(extr_init, X_init, cam_a, cam_b, xa, xb, w,
         extr_new = torch.where(ok[:, None, None, None], se3_exp(delta_c) @ extr, extr)
         Xt_new = torch.where(ok[None, :, None], Xt + delta_p, Xt)
         extr, Xt = normalize_gauge(extr_new, Xt_new, scale_ref)
+    if retriangulate:
+        Xt = _triangulate_pairwise_dlt(extr, cam_a, cam_b, xa, xb).permute(2, 0, 1)
     improved = residual_system(extr, Xt)[6] < best_r
     best_extr = torch.where(improved[:, None, None, None], extr, best_extr)
     best_Xt = torch.where(improved[None, :, None], Xt, best_Xt)

@@ -5,8 +5,10 @@ Counterpart of `e2e_multi_view_matching_tpu/pose/two_view_ba.py`: a free
 reprojection residuals, per-sample LM damping (x1.5 on regression, /3.5 on
 improvement, init 0.1), best-iterate tracking and an `n_matches > 6` gate.
 The point blocks are eliminated analytically, leaving one 6x6 system per
-sample, solved with eigenvalue thresholding (the scale gauge). Per-point
-quantities use the structure-of-arrays layout (small..., B, K).
+sample, solved with eigenvalue thresholding (the scale gauge). With
+`retriangulate=True` (variable projection) the points are triangulated again
+from the current camera at every iteration. Per-point quantities use the
+structure-of-arrays layout (small..., B, K).
 """
 
 import torch
@@ -40,7 +42,7 @@ def _proj_jac(Ap):
 
 
 def bundle_adjust_two_view(x0, x1, conf, init_T021, n_iterations=10, lm_init=0.1,
-                           lm_increase=1.5, lm_decrease=3.5):
+                           lm_increase=1.5, lm_decrease=3.5, retriangulate=False):
     """Refine relative poses by confidence-weighted two-view LM bundle adjustment.
 
     Args:
@@ -48,6 +50,10 @@ def bundle_adjust_two_view(x0, x1, conf, init_T021, n_iterations=10, lm_init=0.1
         conf: (B, K) confidences; <= 0 marks an invalid match.
         init_T021: (B, 4, 4) initial relative transforms.
         n_iterations: LM iterations.
+        retriangulate: variable projection -- midpoint-triangulate the points
+            from the current camera before every LM step and after the last
+            one, instead of carrying them as free LM state (the camera step
+            still uses the Schur-reduced curvature).
     Returns:
         (T021 (B, 4, 4) best-residual extrinsics -- the init where the sample is
          gated invalid --, valid (B,) bool = `n_matches > 6`).
@@ -57,7 +63,10 @@ def bundle_adjust_two_view(x0, x1, conf, init_T021, n_iterations=10, lm_init=0.1
     # per-observation normalization: the 2K observation weights sum to 2
     w = w_match / torch.clamp(0.5 * torch.sum(w_match, dim=-1, keepdim=True), min=1e-6)
 
-    X0init = midpoint_triangulate_rel(init_T021[:, :3, :3], init_T021[:, :3, 3], x0, x1)
+    def triangulate(T1):
+        """Midpoint points (3, B, K) in the cam0 frame of the relative poses T1."""
+        return midpoint_triangulate_rel(T1[:, :3, :3], T1[:, :3, 3], x0, x1).movedim(-1, 0)
+
     x0t = x0.movedim(-1, 0)  # (2, B, K)
     x1t = x1.movedim(-1, 0)
     eye3 = torch.eye(3, dtype=x0.dtype, device=x0.device)
@@ -109,11 +118,13 @@ def bundle_adjust_two_view(x0, x1, conf, init_T021, n_iterations=10, lm_init=0.1
 
     t0_norm = torch.linalg.vector_norm(init_T021[:, :3, 3], dim=-1)
     T1 = init_T021
-    Xt = X0init.movedim(-1, 0)
+    Xt = triangulate(init_T021)
     damp = torch.full_like(T1[:, 0, 0], lm_init)
     best_T1 = init_T021
     best_r = torch.full_like(damp, float("inf"))
     for _ in range(n_iterations):
+        if retriangulate:
+            Xt = triangulate(T1)
         delta_c, delta_p, r_norm, step_ok = lm_step(T1, Xt, damp)
         improved = r_norm < best_r
         best_T1 = torch.where(improved[:, None, None], T1, best_T1)
@@ -127,6 +138,8 @@ def bundle_adjust_two_view(x0, x1, conf, init_T021, n_iterations=10, lm_init=0.1
         T1_new = T1_new.clone()
         T1_new[:, :3, 3] = T1_new[:, :3, 3] * s[:, None]
         T1, Xt = T1_new, X_new * s[None, :, None]
+    if retriangulate:
+        Xt = triangulate(T1)
     improved = residual_system(T1, Xt)[5] < best_r
     best_T1 = torch.where(improved[:, None, None], T1, best_T1)
     return torch.where(valid[:, None, None], best_T1, init_T021), valid

@@ -32,11 +32,12 @@ def _ckpt_name(model_id, file_suffix="model"):
 
 
 def save_checkpoint(exp_dir, file_name, state, epoch, min_val_loss):
-    """Write a TrainState (+ scalars) to `<exp_dir>/<file_name>` atomically."""
+    """Write a TrainState (+ scalars) to `<exp_dir>/<file_name>` atomically;
+    a state without an optimizer (imported weights) saves an empty one."""
     payload = {
         "epoch": int(epoch),
         "model": state.matcher.state_dict(),
-        "optimizer": state.optimizer.state_dict(),
+        "optimizer": {} if state.optimizer is None else state.optimizer.state_dict(),
         "step": int(state.step),
         "min_val_loss": float(min_val_loss),
         "pose_match_ratio": float(state.pose_match_ratio),

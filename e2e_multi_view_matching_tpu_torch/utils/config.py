@@ -76,7 +76,7 @@ def strict_float32():
 def to_device(arr, device):
     """float32 numpy array -> tensor on `device`; through pinned memory on a
     GPU, so that the copy is asynchronous and waits for no queued work."""
-    t = torch.from_numpy(np.ascontiguousarray(arr, dtype=np.float32))
+    t = torch.from_numpy(np.require(arr, np.float32, ["C", "W"]))
     if torch.device(device).type == "cuda":
         return t.pin_memory().to(device, non_blocking=True)
     return t.to(device)

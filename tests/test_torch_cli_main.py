@@ -269,3 +269,21 @@ def test_eval_main_fails_loudly_without_weights_or_tuples(eval_env, tmp_path):
     with pytest.raises(FileNotFoundError, match="tuple CSV"):
         tev.main(_eval_args(eval_env, "torch", "--test_tuple_file",
                             str(tmp_path / "missing.csv"), "--device", "cpu"))
+
+
+def test_eval_main_passes_the_init_mode(eval_env, monkeypatch):
+    """`main()` hands `--init_mode` to `evaluate` in its pipeline config, as
+    the JAX `main()` does, and the host-tree `ransac_ba` run writes finite
+    AUCs (with random weights no pair gets a relative pose)."""
+    seen = {}
+    evaluate = tev.evaluate
+
+    def recording(*args, **kwargs):
+        seen["cfg"] = kwargs["pipeline_cfg"]
+        return evaluate(*args, **kwargs)
+
+    monkeypatch.setattr(tev, "evaluate", recording)
+    metrics = tev.main(_eval_args(eval_env, "torch", "--test_tuple_file", eval_env.csv,
+                                  "--device", "cpu", "--init_mode", "ransac_ba"))
+    assert seen["cfg"].init_mode == "ransac_ba"
+    assert len(metrics) == 9 and all(np.isfinite(v) for v in metrics.values())

@@ -18,6 +18,7 @@ torch.set_num_threads(1)
 from e2e_multi_view_matching_tpu_torch.cli import eval_multi_view  # noqa: E402
 from e2e_multi_view_matching_tpu_torch.cli import eval_pairs  # noqa: E402
 from e2e_multi_view_matching_tpu_torch.cli import train as train_cli  # noqa: E402
+from e2e_multi_view_matching_tpu_torch.mvba import pipeline  # noqa: E402
 from e2e_multi_view_matching_tpu_torch.utils import config  # noqa: E402
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -45,7 +46,8 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                  "data.gt_matches", "data.synthetic", "cli.train", "utils.trackers",
                  "geom.linalg", "geom.eightpoint", "ops.attention_cuda", "data.tuples",
                  "data.scannet", "data.sampling", "utils.tblog", "models.torch_import",
-                 "cli.eval_pairs", "data.pairs", "geom.ransac"):
+                 "cli.eval_pairs", "data.pairs", "geom.ransac", "cli.convert_megadepth",
+                 "mvba.spanning_tree", "mvba.pipeline"):
         assert f"e2e_multi_view_matching_tpu_torch.{name}" in result["modules"], name
     assert result["bad"] == [], f"the port pulled in {result['bad']}"
 
@@ -91,6 +93,33 @@ def test_card_test_files_import_no_jax(path):
     assert bad == [], f"{path} imports {bad}"
 
 
+_TOOL_PROBE = """
+import importlib, importlib.util, json, sys
+sys.path.insert(0, ROOT)
+spec = importlib.util.spec_from_file_location("tool", ROOT + "/tools/torch_import_weights.py")
+spec.loader.exec_module(importlib.util.module_from_spec(spec))
+for name in NAMES:
+    importlib.import_module(name)
+print(json.dumps(sorted(m for m in sys.modules
+                        if m.split(".")[0] in ("jax", "jaxlib", "flax",
+                                               "e2e_multi_view_matching_tpu"))))
+"""
+
+
+def test_import_tool_imports_no_jax():
+    """`tools/torch_import_weights.py` names torch, the standard library and the
+    port in its import statements, at any depth (its `main()` imports the port's
+    modules), and a process that loads it and imports every module it names
+    holds no JAX, flax or JAX-package module."""
+    names, _ = _imports("tools/torch_import_weights.py")
+    assert "e2e_multi_view_matching_tpu_torch.models.torch_import" in names
+    assert _jax_side(names) == [], f"the tool imports {_jax_side(names)}"
+    out = subprocess.run(
+        [sys.executable, "-c", f"ROOT = {ROOT!r}\nNAMES = {sorted(names)!r}\n" + _TOOL_PROBE],
+        capture_output=True, text=True, timeout=300, check=True)
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
 def test_entry_points_raise_without_a_gpu(monkeypatch):
     """Asked for the default device "cuda" with no GPU, the entry points raise
     instead of running on the CPU."""
@@ -106,6 +135,10 @@ def test_entry_points_raise_without_a_gpu(monkeypatch):
                             torch.nn.Identity(), torch.nn.Identity(), [])
     with pytest.raises(RuntimeError, match="CUDA"):
         train_cli.train(train_cli.parse_args([]), None, None)
+    for mode in ("w8pt_ba", "ransac"):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            pipeline.multi_view_pose_pipeline_batch(
+                None, None, None, None, pipeline.MultiViewPipelineConfig(init_mode=mode))
     assert config.resolve_device("cpu") == torch.device("cpu")
 
 

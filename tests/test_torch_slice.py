@@ -31,7 +31,11 @@ from e2e_multi_view_matching_tpu_torch.cli import eval_multi_view as tev  # noqa
 from e2e_multi_view_matching_tpu_torch.models import matcher as tm  # noqa: E402
 from e2e_multi_view_matching_tpu_torch.models import superpoint as tsp  # noqa: E402
 from e2e_multi_view_matching_tpu_torch.models.convert import state_dict_from_flax  # noqa: E402
-from e2e_multi_view_matching_tpu_torch.mvba.pipeline import multi_view_pose_device  # noqa: E402
+from e2e_multi_view_matching_tpu_torch.mvba.pipeline import (  # noqa: E402
+    MultiViewPipelineConfig,
+    multi_view_pose_device,
+    multi_view_pose_pipeline_batch,
+)
 from tests.torch_memory import teardown_module  # noqa: E402,F401
 
 V, K, H, W, D = 5, 64, 96, 128, 64
@@ -132,6 +136,23 @@ def test_pose_stage_on_jax_matches(env):
     extr = multi_view_pose_device(t(env.kpts), t(env.intr), t(env.m_out["matches0"]),
                                   t(env.m_out["conf_scores"])).numpy()
     np.testing.assert_allclose(extr, env.extr, atol=5e-4)
+
+
+@pytest.mark.parametrize("mode", ["w8pt_ba", "ransac", "ransac_ba"])
+def test_pose_stage_by_init_mode_on_jax_matches(env, mode):
+    """The host-tree pipeline of each init mode fed the JAX matcher outputs,
+    against JAX's `multi_view_pose_pipeline_batch` in the same mode:
+    extrinsics within 5e-4. No match clears the threshold here, so every pair
+    is invalid in every mode and both return the identity tree; the modes on
+    real matches are compared in `test_torch_init_modes.py`."""
+    from e2e_multi_view_matching_tpu.mvba import pipeline as jpipe
+
+    args = (env.kpts, env.intr, env.m_out["matches0"], env.m_out["conf_scores"])
+    ref = jpipe.multi_view_pose_pipeline_batch(*args, jpipe.MultiViewPipelineConfig(
+        init_mode=mode))
+    extr = multi_view_pose_pipeline_batch(*args, MultiViewPipelineConfig(init_mode=mode),
+                                          device="cpu")
+    np.testing.assert_allclose(extr, ref, atol=5e-4)
 
 
 def test_evaluate_matches_jax(env):
