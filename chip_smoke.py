@@ -13,7 +13,12 @@ Phases, each fatal on failure:
                    bf16 kernel) whose SASS (cuobjdump) lacks HGMMA or
                    UTMALDG; so does a ptxas note that it
                    serialised a kernel's wgmma instructions (a wait it
-                   inserted after each product).
+                   inserted after each product). Beside the kernels, the
+                   native host runtime (`data/native_loader.py`: the C++
+                   library and `emvm_overlap`, host compiler, libjpeg,
+                   libpng), with a probe of the compiler for `jpeglib.h` and
+                   `png.h`: a failed build fails the phase when both headers
+                   are found; without them the `cli` phase holds the fallback.
   2. device     -- print the card's name and power limit (nvidia-smi).
   3. kernel     -- each of the fourteen kernels against its plain PyTorch version
                    at the shapes of its main path (eval: V=5, K=1024; training:
@@ -147,7 +152,20 @@ Phases, each fatal on failure:
                    Then seeded upstream-layout checkpoints (SuperPoint and
                    a 5-tuple matcher) through `tools/torch_import_weights.py`
                    and the eval command line with `--init_mode ransac_ba` on
-                   them (exit 0, finite AUCs).
+                   them (exit 0, finite AUCs). The native runtime (the
+                   `cli_native` line): the in-process eval `main()`'s test
+                   set resolves `use_native="auto"` to the runtime when it
+                   built and to the Python path when not. When it built:
+                   `emvm_overlap` on a copy of the tree (exit 0, a JSON a
+                   scene, 3-tuples from them), `overlap_matrix` within 0.03
+                   of numpy, the 8 test tuples' native samples against the
+                   Python path's (images 2e-2, depths 1e-3, intrinsics
+                   1e-5), the rows by which the paths disagree on 1296x968
+                   color (measured and predicted), and the eval `main()`'s
+                   tuples/s on both paths. When it did not: the headers the
+                   compiler lacks, and `use_native=True` raising with their
+                   name. Both: host seconds to load 8 tuples at 480x640 and
+                   1296x968 on each path there is.
  12. distributed -- the distributed modes, two gloo ranks sharing cuda:0 (the
                    card machine has one GPU; NCCL puts no two ranks on one):
                    (a) `evaluate` at the main_path width on a [cuda:0,
@@ -277,6 +295,11 @@ SPILL_FREE_SOURCES = ("attention_cuda", "attention_bf16_cuda")
 HOPPER_KERNELS = ("attn_fwd_bf16_kernel", "cross_attn_fwd_bf16_kernel",
                   "cross_attn_fwd_lse_bf16_kernel", "cross_attn_bwd_dq_bf16_kernel",
                   "cross_attn_bwd_dkv_bf16_kernel")
+# The native runtime's samples against the Python path's (the JAX package's
+# tests/test_data_pipeline.py::test_native_matches_python) and its overlap
+# matrix against a numpy version (tests/test_native.py)
+NATIVE_TOLS = {"images": 2e-2, "depths": 1e-3, "intr": 1e-5}
+OVERLAP_TOL = 0.03
 
 
 class SmokeFailure(RuntimeError):
@@ -321,10 +344,17 @@ def bound(ops, nbytes, exps=0.0, bf16=False):
 
 
 def build_phase():
+    """Compile the kernels, and beside them the native host runtime; returns
+    the native runtime's record (`_native_build`)."""
+    from concurrent.futures import ThreadPoolExecutor
+
     from e2e_multi_view_matching_tpu_torch.ops import cuda_build
 
     t0 = time.perf_counter()
-    logs = cuda_build.build_all(verbose=True)
+    with ThreadPoolExecutor(1) as pool:
+        native = pool.submit(_native_build)
+        logs = cuda_build.build_all(verbose=True)
+        native = native.result()
     dt = time.perf_counter() - t0
     import re
 
@@ -363,13 +393,40 @@ def build_phase():
                     serialised.append(kernel_name(serial.group(1)))
     sass = _sass_flags(cuda_build, "attention_bf16_cuda", kernel_name)
     emit({"phase": "build", "sources": sorted(logs), "seconds": round(dt, 3),
-          "sass_attention_bf16": sass})
+          "sass_attention_bf16": sass, "native_runtime": native})
+    check(native["built"] or not all(native["headers"].values()),
+          f"native runtime: its headers compile, but it did not build: {native['error']}")
     check(not spilled, f"ptxas spills: {'; '.join(spilled)}")
     check(not serialised, f"ptxas serialised the wgmma of {', '.join(serialised)}")
     for name in HOPPER_KERNELS:
         found = {k: v for k, v in sass.items() if k.startswith(name + "<")}
         check(found and all(v["HGMMA"] and v["UTMALDG"] for v in found.values()),
               f"{name}: no HGMMA or UTMALDG in its SASS ({found})")
+    return native
+
+
+def _native_build():
+    """Build the port's native host runtime (`data/native_loader.py`: the
+    library and `emvm_overlap`), and ask the host compiler whether it finds
+    each header the runtime needs. Returns {"built", "seconds", "headers":
+    {header: found}, "error": the build's message or None}."""
+    from e2e_multi_view_matching_tpu_torch.data import native_loader
+
+    headers = {}
+    for header in ("jpeglib.h", "png.h"):
+        try:
+            probe = subprocess.run([native_loader._compiler(), "-x", "c++", "-fsyntax-only", "-"],
+                                   input=f"#include <cstdio>\n#include <{header}>\n",
+                                   capture_output=True, text=True, timeout=120)
+            headers[header] = probe.returncode == 0
+        except OSError:
+            headers[header] = False
+    t0 = time.perf_counter()
+    built = native_loader.available()
+    error = None if built else "\n".join(
+        line for line in native_loader._error.splitlines() if "error" in line)[:2000]
+    return {"built": built, "seconds": time.perf_counter() - t0, "headers": headers,
+            "error": error}
 
 
 def _sass_flags(cuda_build, source, kernel_name):
@@ -2670,21 +2727,24 @@ def _device_busy(fn, groups=None):
     """Device time of one call under torch.profiler against its wall time
     (the profiler slows the host, so the idle share is an upper bound).
     `groups` = {label: (substrings of kernel names)} also sums device time by
-    label."""
+    label. Only the device's activity is traced, and its records are read as
+    the profiler returns them: host ops and their event tree cost minutes
+    for a pose stage's 164,495 launches."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    if not kernels:
+    by_name, n_kernels = {}, 0
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == torch.autograd.DeviceType.CUDA:
+            n_kernels += 1
+            by_name[e.name()] = by_name.get(e.name(), 0.0) + e.duration_ns() / 1e6
+    if not n_kernels:
         return {"profiled_device_busy_ms": None, "profiled_wall_ms": wall_ms}
-    by_name = {}
-    for e in kernels:
-        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
     busy_ms = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
     grouped = {}
@@ -2692,7 +2752,7 @@ def _device_busy(fn, groups=None):
         grouped[label] = sum(ms for n, ms in by_name.items() if any(x in n for x in needles))
     return {**({"device_ms_by_group": grouped} if groups else {}),
             "profiled_wall_ms": wall_ms, "profiled_device_busy_ms": busy_ms,
-            "device_idle_share": 1.0 - busy_ms / wall_ms, "device_launches": len(kernels),
+            "device_idle_share": 1.0 - busy_ms / wall_ms, "device_launches": n_kernels,
             "top_device_ms": [[n[:60], round(ms, 3)] for n, ms in top]}
 
 
@@ -2876,10 +2936,177 @@ def _write_cli_tree(data, H=480, W=640):
                              image_fn=fourier_texture_image)
 
 
-def cli_phase(workdir, card, n_steps=2, hd_steps=20):
+def _overlap_numpy(depths, poses, intr, stride=8):
+    """The symmetric-mean overlap matrix in numpy (the JAX package's
+    tests/test_native.py reference): the share of view i's valid depth
+    samples that project into view j with a consistent depth."""
+    n, h, w = depths.shape
+    directed = np.zeros((n, n))
+    for i in range(n):
+        ys, xs = np.mgrid[0:h:stride, 0:w:stride]
+        d = depths[i][ys, xs]
+        valid = d > 1e-6
+        pts = np.stack([xs[valid] * d[valid], ys[valid] * d[valid], d[valid]], -1)
+        X_i = pts @ np.linalg.inv(intr[i][:3, :3]).T
+        for j in range(n):
+            if i == j:
+                continue
+            T = np.linalg.inv(poses[j]) @ poses[i]
+            X_j = X_i @ T[:3, :3].T + T[:3, 3]
+            z = X_j[:, 2]
+            front = z > 1e-6
+            p = X_j[front] @ intr[j][:3, :3].T
+            u = np.round(p[:, 0] / z[front]).astype(int)
+            v = np.round(p[:, 1] / z[front]).astype(int)
+            inb = (u >= 0) & (u < w) & (v >= 0) & (v < h)
+            dj = depths[j][v[inb], u[inb]]
+            zz = z[front][inb]
+            ok = dj > 1e-6
+            directed[i, j] = np.sum(np.abs(dj[ok] - zz[ok]) / dj[ok] < 0.1) / max(valid.sum(), 1)
+    return 0.5 * (directed + directed.T)
+
+
+def _row_shift(a, b, rows, steps=np.arange(-200, 201) / 100):
+    """The shift t, to 0.01 of a row, for which a[r] best matches b[r - t]
+    (b's rows interpolated linearly) over `rows`: how far a feature sits
+    lower in image a than in image b."""
+    def shifted(t):
+        y = rows - t
+        y0 = np.floor(y).astype(int)
+        f = (y - y0)[:, None]
+        return b[y0] * (1 - f) + b[y0 + 1] * f
+
+    errs = [float(np.mean((a[rows] - shifted(t)) ** 2)) for t in steps]
+    return float(steps[int(np.argmin(errs))])
+
+
+def _native_checks(workdir, data, hd_data, native, V=5, B=8):
+    """The native runtime on the `cli` trees, from the host. When it built:
+    `emvm_overlap` on a copy of the 480x640 tree (exit 0, one JSON a scene,
+    3-tuples the sampler can read), `overlap_matrix` against numpy, the native
+    samples of the 8 test tuples against the Python path's, and on the
+    1296x968 tree the rows by which the two paths disagree near the top,
+    middle and bottom. When it did not: the headers it lacks, `use_native=True`
+    raising with the missing header's name, and "auto" taking the Python
+    path. In both cases the host seconds to load a batch of 8 tuples at
+    480x640 (test split) and 1296x968 (val split), on each path there is.
+    Returns the record."""
+    import shutil
+
+    from e2e_multi_view_matching_tpu_torch.data import native_loader
+    from e2e_multi_view_matching_tpu_torch.data.scannet import read_depth, read_pose
+    from e2e_multi_view_matching_tpu_torch.data.tuples import (
+        MatchingTupleDataset,
+        batch_iterator,
+    )
+
+    trees = {"480x640": (f"{data}/scannet", "test"), "1296x968": (f"{hd_data}/scannet", "val")}
+    paths = (False, True) if native["built"] else (False,)
+    rec = {"built": native["built"], "headers": native["headers"],
+           "host_load_seconds_per_batch_of_8": {}}
+    sets = {}
+    for tree, (root, split) in trees.items():
+        auto = MatchingTupleDataset(root, split, V, n_samples=B, shuffle_tuple=False)
+        check(auto.use_native == native["built"] and len(auto) == B,
+              f"native: {tree} {split} resolved use_native={auto.use_native} with "
+              f"{len(auto)} tuples; the runtime built: {native['built']}")
+        for use_native in paths:
+            ds = MatchingTupleDataset(root, split, V, n_samples=B, shuffle_tuple=False,
+                                      use_native=use_native)
+            times = []
+            for _ in range(2):
+                t0 = time.perf_counter()
+                next(batch_iterator(ds, B, shuffle=False))
+                times.append(time.perf_counter() - t0)
+            name = "native" if use_native else "python"
+            rec["host_load_seconds_per_batch_of_8"][f"{tree}_{name}"] = times
+            sets[tree, use_native] = ds
+
+    if not native["built"]:
+        missing = [h for h, found in native["headers"].items() if not found]
+        forced = MatchingTupleDataset(*trees["480x640"], V, n_samples=B, use_native=True)
+        try:
+            forced[0]
+            raised = None
+        except RuntimeError as e:
+            raised = str(e)
+        check(raised is not None and any(h in raised for h in missing),
+              f"native: without {missing}, use_native=True gave {raised!r}")
+        rec.update(missing_headers=missing, auto="python",
+                   use_native_true_raised=next(line for line in raised.splitlines()
+                                               if any(h in line for h in missing)))
+        return rec
+
+    # emvm_overlap on a copy of the tree. The sphere-field views overlap less
+    # than real ScanNet's neighbours, so the candidates' range is 0.1-1.0
+    # (the default, 0.4-0.8, leaves most of the views without one)
+    copy = f"{workdir}/cli_data_overlap"
+    shutil.copytree(data, copy)
+    shutil.rmtree(f"{copy}/scannet/overlap")
+    tool_s = {}
+    for split, scans in (("train", "scans"), ("test", "scans_test")):
+        t0 = time.perf_counter()
+        run = subprocess.run([native_loader.overlap_tool(), f"{copy}/scannet", split, "0.1", "1.0"],
+                             capture_output=True, text=True, timeout=300)
+        tool_s[split] = time.perf_counter() - t0
+        check(run.returncode == 0, f"native: emvm_overlap {split} exited {run.returncode}: "
+              f"{run.stderr[-2000:]}")
+        scenes = sorted(os.listdir(f"{copy}/scannet/{scans}"))
+        written = sorted(os.listdir(f"{copy}/scannet/overlap/{scans}"))
+        check(written == [f"{sc}.json" for sc in scenes],
+              f"native: emvm_overlap wrote {written} for the scenes {scenes}")
+    n_tuples = {split: len(MatchingTupleDataset(f"{copy}/scannet", split, 3))
+                for split in ("train", "test")}
+    check(all(n_tuples.values()), f"native: tuples from emvm_overlap's JSONs: {n_tuples}")
+
+    # the overlap matrix of the test scene's 8 views against numpy
+    sdir = f"{data}/scannet/scans_test"
+    (scene,) = os.listdir(sdir)
+    depths = np.stack([read_depth(sdir, scene, i) for i in range(8)])
+    poses = np.stack([read_pose(sdir, scene, i) for i in range(8)])
+    intr = np.tile(np.loadtxt(f"{sdir}/{scene}/intrinsic/intrinsic_color.txt"), (8, 1, 1))
+    t0 = time.perf_counter()
+    ours = native_loader.overlap_matrix(depths, poses, intr, stride=8)
+    overlap_s = time.perf_counter() - t0
+    overlap_err = float(np.abs(ours - _overlap_numpy(depths, poses, intr, stride=8)).max())
+    check(overlap_err <= OVERLAP_TOL, f"native: overlap_matrix {overlap_err} from numpy")
+
+    # native against Python, sample by sample
+    errs = {k: 0.0 for k in NATIVE_TOLS}
+    for i in range(B):
+        a, b = sets["480x640", False][i], sets["480x640", True][i]
+        check(a["ids"] == b["ids"], f"native: tuple {i} {a['ids']} against {b['ids']}")
+        for k in NATIVE_TOLS:
+            errs[k] = max(errs[k], float(np.abs(a[k] - b[k]).max()))
+    check(all(errs[k] <= NATIVE_TOLS[k] for k in NATIVE_TOLS),
+          f"native: samples {errs} from the Python path's, limits {NATIVE_TOLS}")
+
+    # 1296x968: the Python path pads to 972 rows, the native one does not
+    # (the intrinsics of both are those of the padded frame)
+    a, b = sets["1296x968", False][0], sets["1296x968", True][0]
+    check(np.array_equal(a["intr"], b["intr"]), "native: 1296x968 intrinsics differ")
+    h = a["images"].shape[1]
+    bands = {"top": np.arange(4, 4 + h // 12), "middle": np.arange(h // 2 - h // 24, h // 2 + h // 24),
+             "bottom": np.arange(h - 4 - h // 12, h - 4)}
+    shifts, predicted = {}, {}
+    for name, rows in bands.items():
+        shifts[name] = float(np.mean([_row_shift(a["images"][v, ..., 0], b["images"][v, ..., 0], rows)
+                                      for v in range(V)]))
+        src = (rows.mean() + 0.5) * 968 / h - 0.5  # source row of the native path
+        predicted[name] = (src + 2.5) * h / 972 - (src + 0.5) * h / 968
+    rec.update(overlap_tool_seconds=tool_s, overlap_tool_tuples=n_tuples,
+               overlap_matrix_seconds=overlap_s, overlap_max_err_vs_numpy=overlap_err,
+               native_vs_python_max_err=errs,
+               rows_python_below_native_1296x968={"measured": shifts, "predicted": predicted})
+    return rec
+
+
+def cli_phase(workdir, card, native, n_steps=2, hd_steps=20):
     """Both command lines at full width from a ScanNet-format tree, in
     subprocesses as a user runs them; then the eval `main()` in this process
-    for the launch counts. Returns those counts."""
+    for the launch counts, its test set on the native runtime when that
+    built (`native`, from `build_phase`), and the native runtime's own checks
+    (`_native_checks`). Returns the launch counts."""
     import re
     import shutil
 
@@ -2980,13 +3207,43 @@ def cli_phase(workdir, card, n_steps=2, hd_steps=20):
     n_tuples = int(re.findall(r"loaded (\d+) test tuples", text3)[-1])
     check(n_tuples == 8, f"cli: eval loaded {n_tuples} tuples, expected 8")
 
-    torch.cuda.synchronize()
-    _reset_launches()
-    t0 = time.perf_counter()
-    metrics = tev.main(eval_args)
-    torch.cuda.synchronize()
-    eval_s = time.perf_counter() - t0
-    launches = _launches()
+    # in this process: the test set resolves use_native="auto" as the
+    # command line does (native when the runtime built), then on the Python
+    # path for the comparison
+    dataset_cls, resolved = tev.MatchingTupleDataset, []
+
+    def recording(*args, **kwargs):
+        ds = dataset_cls(*args, **kwargs)
+        resolved.append(ds.use_native)
+        return ds
+
+    tev.MatchingTupleDataset = recording
+    try:
+        torch.cuda.synchronize()
+        _reset_launches()
+        t0 = time.perf_counter()
+        metrics = tev.main(eval_args)
+        torch.cuda.synchronize()
+        eval_s = time.perf_counter() - t0
+        launches = _launches()
+        eval_python_s = None
+        if native["built"]:
+            tev.MatchingTupleDataset = lambda *a, **kw: recording(*a, **kw, use_native=False)
+            t0 = time.perf_counter()
+            python_metrics = tev.main(eval_args)
+            torch.cuda.synchronize()
+            eval_python_s = time.perf_counter() - t0
+            check(python_metrics.keys() == metrics.keys(), f"cli: {python_metrics}")
+    finally:
+        tev.MatchingTupleDataset = dataset_cls
+    check(resolved[0] == native["built"] and resolved[1:] in ([], [False]),
+          f"cli: the eval main()'s test sets resolved use_native to {resolved}; the native "
+          f"runtime built: {native['built']}")
+    native_rec = _native_checks(workdir, data, hd_data, native)
+    emit({"phase": "cli_native", "card": card, **native_rec,
+          "eval_test_set_native": resolved[0],
+          "eval_tuples_per_s_with_decode": {"auto": n_tuples / eval_s,
+                                            "python": eval_python_s and n_tuples / eval_python_s}})
     auc_keys = [f"{m}_AUC@{t}deg" for t in (5, 10, 20) for m in ("pose", "transl", "rot")]
     emit({"phase": "cli", "codec": f"(a) OpenCV {cv2.__version__}", "card": card,
           "config": {"V": V, "B": B, "image": [H, W], "train_K": 400, "eval_K": 1024,
@@ -3880,7 +4137,7 @@ def main(argv=None):
 
     try:
         with tempfile.TemporaryDirectory() as workdir:  # checkpoints of the two stages
-            build_phase()
+            native = build_phase()
             card = device_phase()
             lap("build")
             records = kernel_phase() if "kernel" in phases else []
@@ -3915,7 +4172,7 @@ def main(argv=None):
                 torch.cuda.empty_cache()
             lap("train_bf16")
             if "cli" in phases:
-                by_path["cli_eval"] = cli_phase(workdir, card)
+                by_path["cli_eval"] = cli_phase(workdir, card, native)
                 torch.cuda.empty_cache()
             lap("cli")
             if "distributed" in phases:

@@ -13,7 +13,15 @@ and batches it gives bit for bit:
   train, centred at test) and applies one color jitter to all views of a
   tuple. Per-item randomness comes from `_item_rng(index)`, a function of
   (seed, epoch, index) alone;
-- fixed test tuples round-trip through the `scene,"[id,...]"` CSV.
+- fixed test tuples round-trip through the `scene,"[id,...]"` CSV;
+- `use_native` ("auto": when the native runtime builds, the tree is not
+  MegaDepth and there is no jitter) decodes a tuple's JPEGs and PNGs with the
+  C++ runtime of `data/native_loader.py`, on threads, straight to grayscale at
+  the depth map's size (`_getitem_native`), as the JAX package does when its
+  library is built. For a 1296x968 color frame it sets the intrinsics as if
+  the frame had been padded to 972 rows but resizes the unpadded 968 rows, as
+  JAX's native path does: those images sit up to about one row (at 480 rows)
+  off their own intrinsics near the top and bottom, against the Python path.
 
 `batch_iterator` stacks samples into numpy batches for the train step:
 images (B, V, H, W, 1), intr (B, V, 4, 4), poses (B, V, 4, 4),
@@ -31,6 +39,7 @@ import cv2
 import numpy as np
 import torch
 
+from e2e_multi_view_matching_tpu_torch.data import native_loader
 from e2e_multi_view_matching_tpu_torch.data.scannet import (
     crop_intrinsics,
     get_scenes,
@@ -86,9 +95,14 @@ class MatchingTupleDataset(torch.utils.data.Dataset):
     """Stochastically sampled view tuples from a ScanNet-format tree."""
 
     def __init__(self, data_dir, split, tuple_size, n_samples=None, jitter=None,
-                 shuffle_tuple=True, seed=0):
+                 shuffle_tuple=True, seed=0, use_native="auto"):
         self.data_dir = data_dir
         self.split = split
+        # the native decode has no color jitter and reads scannet-style PNGs
+        if use_native == "auto":
+            use_native = (jitter is None and "megadepth" not in data_dir
+                          and native_loader.available())
+        self.use_native = bool(use_native)
         self.data_split_dir = os.path.join(
             data_dir, "scans" + ("_test" if split == "test" else "")
         )
@@ -207,7 +221,50 @@ class MatchingTupleDataset(torch.utils.data.Dataset):
         intr = crop_intrinsics(intr, left, top)
         return rgb[top:bottom, left:right], depth[top:bottom, left:right], intr
 
+    def _getitem_native(self, index):
+        """A sample decoded by the native runtime (scannet and matterport
+        layouts): images and depths at the depth map's size."""
+        scene, ids = self.sampled_tuples[index]
+        per_image_intr = "matterport" in self.data_split_dir
+        if not per_image_intr:
+            scene_intr = read_intrinsics(self.data_split_dir, scene)
+        sdir = os.path.join(self.data_split_dir, scene)
+        rgb_paths = [os.path.join(sdir, "color", f"{id}.jpg") for id in ids]
+        dep_paths = [os.path.join(sdir, "depth", f"{id}.png") for id in ids]
+        dh, dw = native_loader.png_size(dep_paths[0])
+        images, depths = native_loader.load_batch(rgb_paths, dep_paths, dh, dw)
+        intrs, poses = [], []
+        for i, id in enumerate(ids):
+            intr = (
+                read_intrinsics(self.data_split_dir, scene, id)
+                if per_image_intr else scene_intr.copy()
+            ).astype(np.float32)
+            if intr.shape == (3, 3):
+                intr4 = np.eye(4, dtype=np.float32)
+                intr4[:3, :3] = intr
+                intr = intr4
+            rh, rw = native_loader.jpeg_size(rgb_paths[i])
+            # 1296x968 color: the intrinsics of the 972-row padded frame, but
+            # the decode resizes the unpadded 968 rows (see the module's doc)
+            if rw == 1296 and rh == 968:
+                rh += 4
+                intr[1, 2] += 2
+            if (rh, rw) != (dh, dw):
+                intr = resize_intrinsics(intr, dw / rw, dh / rh)
+            intrs.append(intr)
+            poses.append(read_pose(self.data_split_dir, scene, id).astype(np.float32))
+        return {
+            "scene": scene,
+            "ids": list(ids),
+            "images": images[..., None],
+            "intr": np.stack(intrs),
+            "poses": np.stack(poses),
+            "depths": depths,
+        }
+
     def __getitem__(self, index):
+        if self.use_native:
+            return self._getitem_native(index)
         scene, ids = self.sampled_tuples[index]
         is_megadepth = "megadepth" in self.data_split_dir
         per_image_intr = is_megadepth or "matterport" in self.data_split_dir

@@ -107,7 +107,11 @@ def test_main_feeds_the_jax_mains_batches(data_dir):
     root = os.path.join(data_dir, "scannet")
     j_train = jtuples.MatchingTupleDataset(root, "train", 3, n_samples=200, jitter=0.2,
                                            use_native=False)
-    j_val = jtuples.MatchingTupleDataset(root, "val", 3, n_samples=200, use_native=False)
+    # the validation set takes the native path when the runtime builds (no
+    # jitter): the JAX set runs in the mode that the port's resolved to
+    assert not feed.train_set.use_native
+    j_val = jtuples.MatchingTupleDataset(root, "val", 3, n_samples=200,
+                                         use_native=feed.val_set.use_native)
     subsets = create_sequential_subsets(len(j_val), 60000)
     for epoch in (3, 4):
         if epoch == 4:
@@ -222,16 +226,18 @@ def test_eval_main_matches_jax(eval_env, monkeypatch):
     the errors hold the readers and the scoring, and the modules the port's
     `main()` hands to `evaluate` are held to the weights of model.ckpt and
     superpoint.ckpt, exactly. The stages on real matches are compared in
-    `test_torch_slice.py` and `test_torch_geom.py`."""
+    `test_torch_slice.py` and `test_torch_geom.py`. Both `main()`s build their
+    test set with the default `use_native="auto"`, which must resolve alike."""
     from e2e_multi_view_matching_tpu.cli import eval_multi_view as jev
 
-    errors, modules = {}, {}
+    errors, modules, native = {}, {}, {}
     for pkg, mod in (("jax", jev), ("torch", tev)):
         evaluate = mod.evaluate
 
         def recording(*args, _pkg=pkg, _evaluate=evaluate, **kwargs):
             if _pkg == "torch":
                 modules["superpoint"], modules["matcher"] = args[1], args[2]
+            native[_pkg] = args[3 if _pkg == "torch" else 5].use_native
             errors[_pkg] = _evaluate(*args, **kwargs)
             return errors[_pkg]
 
@@ -239,6 +245,7 @@ def test_eval_main_matches_jax(eval_env, monkeypatch):
     ref = jev.main(_eval_args(eval_env, "jax", "--test_tuple_file", eval_env.csv))
     ours = tev.main(_eval_args(eval_env, "torch", "--test_tuple_file", eval_env.csv,
                                "--device", "cpu"))
+    assert native["torch"] == native["jax"]
     for name, want in (("superpoint", eval_env.sp_state), ("matcher", eval_env.m_state)):
         got = modules[name].state_dict()
         assert got.keys() == want.keys(), name

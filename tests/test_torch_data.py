@@ -3,9 +3,9 @@ tuples, samples and batches.
 
 Both packages decode with OpenCV, so every comparison is exact: tuple lists,
 images (with and without the color jitter), intrinsics, poses, depths, the
-fixed-tuple CSV and the batch order. The JAX datasets run with
-`use_native=False`: the native loader is the JAX package's own fast path,
-not the reference for the port."""
+fixed-tuple CSV and the batch order. Both packages' datasets run with
+`use_native=False`, the Python path; their native paths are compared in
+`test_torch_native.py`."""
 
 import filecmp
 import os
@@ -62,7 +62,7 @@ def trees(tmp_path_factory):
 
 def _datasets(root, split="train", **kwargs):
     return (jtuples.MatchingTupleDataset(root, split, use_native=False, **kwargs),
-            ttuples.MatchingTupleDataset(root, split, **kwargs))
+            ttuples.MatchingTupleDataset(root, split, use_native=False, **kwargs))
 
 
 def _assert_same_sample(a, b):
@@ -99,7 +99,7 @@ def test_tuples_and_samples_match_jax(trees, writer, jitter):
             assert b["images"].shape == (3, H, W, 1) and b["intr"].shape == (3, 4, 4)
     if jitter:
         plain = ttuples.MatchingTupleDataset(trees[writer], "train", tuple_size=3,
-                                             n_samples=4, seed=5)
+                                             n_samples=4, seed=5, use_native=False)
         plain.sampled_tuples = tds.sampled_tuples
         plain.epoch = tds.epoch
         assert not np.array_equal(plain[0]["images"], tds[0]["images"])

@@ -4,6 +4,7 @@ of the JAX package, and its entry points refuse to fall back to the CPU."""
 import ast
 import json
 import os
+import re
 import subprocess
 import sys
 import types
@@ -48,7 +49,7 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                  "data.scannet", "data.sampling", "utils.tblog", "models.torch_import",
                  "cli.eval_pairs", "data.pairs", "geom.ransac", "cli.convert_megadepth",
                  "mvba.spanning_tree", "mvba.pipeline", "parallel.mesh",
-                 "mvba.distributed"):
+                 "mvba.distributed", "data.native_loader"):
         assert f"e2e_multi_view_matching_tpu_torch.{name}" in result["modules"], name
     assert result["bad"] == [], f"the port pulled in {result['bad']}"
 
@@ -119,6 +120,75 @@ def test_import_tool_imports_no_jax():
         [sys.executable, "-c", f"ROOT = {ROOT!r}\nNAMES = {sorted(names)!r}\n" + _TOOL_PROBE],
         capture_output=True, text=True, timeout=300, check=True)
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+_NATIVE_PROBE = """
+import json, os, sys
+from pathlib import Path
+sys.path.insert(0, ROOT)
+from e2e_multi_view_matching_tpu_torch.data import native_loader as nl
+default_build = nl.BUILD_DIR
+nl.BUILD_DIR = Path(SCRATCH) / "build"
+os.environ["CXX"] = FAKE_CXX
+assert not nl.available()
+for name in ("_lib", "_tool", "_error"):
+    setattr(nl, name, None)
+nl.BUILD_DIR = default_build
+del os.environ["CXX"]
+assert nl.available()
+tool = nl.overlap_tool()
+maps = [line.split()[-1] for line in open("/proc/self/maps") if "libemvm_native" in line]
+print(json.dumps({"maps": sorted(set(maps)), "tool": tool, "build": str(default_build)}))
+"""
+
+_FAKE_CXX = """#!{python}
+import json, sys
+with open({log!r}, "a") as f:
+    f.write(json.dumps(sys.argv[1:]) + "\\n")
+sys.exit(1)
+"""
+
+
+def test_native_runtime_is_built_and_loaded_from_the_ports_own_copy(tmp_path):
+    """The port never names the JAX package's `native/` tree: no module joins
+    "native" with "build", "src" or "tools" or writes such a path, and every
+    C++ include resolves inside the port's own `native/`; the
+    compiler is handed the sources under the port's `native/` and writes into
+    `build/native/` (a recording compiler that fails shows both), and the
+    process that loads the library maps `libemvm_native` from `build/native/`
+    at the repository root only."""
+    pkg = os.path.join(ROOT, "e2e_multi_view_matching_tpu_torch")
+    joined = re.compile(r"[\"']native[\"']\s*[,/]\s*[\"'](build|src|tools)[\"']"
+                        r"|[\"'][^\"'\n]*\bnative/(build|src|tools)")
+    native = os.path.join(pkg, "native", "")
+    for d, _, files in os.walk(pkg):
+        for f in files:
+            text = open(os.path.join(d, f)).read() if f.endswith((".py", ".cpp", ".h")) else ""
+            if f.endswith(".py"):
+                assert not joined.search(text), (f, joined.search(text).group(0))
+            for inc in re.findall(r'#include "([^"]+)"', text):
+                assert os.path.realpath(os.path.join(d, inc)).startswith(native), (f, inc)
+    log = tmp_path / "cxx.log"
+    fake = tmp_path / "fake-c++"
+    fake.write_text(_FAKE_CXX.format(python=sys.executable, log=str(log)))
+    fake.chmod(0o755)
+    out = subprocess.run(
+        [sys.executable, "-c", f"ROOT = {ROOT!r}\nSCRATCH = {str(tmp_path)!r}\n"
+         f"FAKE_CXX = {str(fake)!r}\n" + _NATIVE_PROBE],
+        capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    result = json.loads(out.stdout.strip().splitlines()[-1])
+    calls = [json.loads(line) for line in log.read_text().splitlines()]
+    assert len(calls) == 2  # the library and the tool, side by side
+    for argv in calls:
+        sources = [a for a in argv if a.endswith(".cpp")]
+        target = argv[argv.index("-o") + 1]
+        assert sources and all(a.startswith(os.path.join(pkg, "native", "")) for a in sources)
+        assert target.startswith(str(tmp_path / "build") + os.sep)
+    build = os.path.join(ROOT, "build", "native")
+    assert result["build"] == build
+    assert result["maps"] and all(m.startswith(build + os.sep) for m in result["maps"])
+    assert result["tool"].startswith(build + os.sep)
 
 
 def test_entry_points_raise_without_a_gpu(monkeypatch):
